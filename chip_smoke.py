@@ -8,12 +8,23 @@ Phases (one line each; any failure exits non-zero before the result lines):
   2. build: every csrc/*.cu kernel, one nvcc each, started together, with
      the -Xptxas -v register / shared-memory / spill lines;
   3. kernels: each kernel against its plain PyTorch version at the main
-     path's shapes, with the stated tolerances; kernel, plain and bound times;
+     path's shapes, with the stated tolerances; kernel, plain, library and
+     bound times (K1 fused_field_head; K2 block_table_grad at block 4 and 3);
   4. main path: the --ff -O event trainer at full field width (16 x 2
      levels, blk4, 2^19 hash budget, hidden 64, geo 15, SH 4) on the
-     synthetic event scene, 48 steps (occupancy updates at steps 0, 16, 32);
+     synthetic event scene, one epoch of 48 steps (occupancy updates at
+     steps 0, 16, 32) through train(train, val, 1): a checkpoint and the
+     affine-corrected evaluation of 2 val views; then a new Trainer resumed
+     from the 'latest' checkpoint must hold the same params, EMA and step;
   5. inference: one validation view through the alive-ray inference renderer;
-  6. breakdown: one more step, split into its parts on the host clock.
+  6. breakdown: one more step, split into its parts on the host clock;
+  7. K2 path: bench.py's march step at its reference shape (16 x 2, blk4,
+     separate marches, 8192 rays x 32 samples, compact_frac 0.25, bf16,
+     the ball bitfield) with fast_table_grad on (K2) and off (index_add_),
+     from the same state with the same noise; step 1's table gradients
+     must agree within K2's tolerance;
+  8. no-event pair: 8 main-path steps with negative_event_sampling and
+     precompute_evs_poses=0 (the device slerp); loss_no_evs must be finite.
 Then a `{"kernels": [...]}` line, the card line, and last the result line
 `{"ok": true, "device": {...}}`.
 """
@@ -159,7 +170,81 @@ def phase_kernels():
     return results
 
 
-def smoke_config(workspace):
+def k2_bound(pairs, total_rows, row_cells):
+    """Least time for K2's work: 36 bytes read per (sample, level) pair
+    (rid, lo, frac, g as int32 / f32) and the table gradient written once;
+    ~47 f32 operations per pair (3 subtractions, 12 weight and 16 gradient
+    products, 16 additions)."""
+    nbytes = pairs * 36 + total_rows * 2 * row_cells * 4
+    flops = pairs * 47.0
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def k2_within_bound(got, pairs, total_rows, meta):
+    """K2's tolerance: atomics sum in any order, so per cell |got - the
+    float64 twin| <= 1e-5 * A + 1e-7, A the same scatter of |g| * W.
+    Returns (ok, largest |got - f64| / bound)."""
+    import torch
+    from enerf_torch.ops import scatter_accum as sa
+    rid, lo, frac, g = pairs
+    ref64 = sa.block_table_grad_reference(rid, lo, frac, g, total_rows, meta, torch.float64)
+    mag = sa.block_table_grad_reference(rid, lo, frac, g.abs(), total_rows, meta, torch.float64)
+    ratio = float(((got.double() - ref64).abs() / (1e-5 * mag + 1e-7)).max())
+    return ratio <= 1.0, ratio
+
+
+def phase_k2_kernel():
+    """K2 against its plain version at the main path's shape: 131,072
+    samples (4096 rays x 64 x 0.5) x 16 levels x 2 features, positions in
+    the unit box and g ~ N(0, 1) from a seed; block 4 and block 3."""
+    import torch
+    from enerf_torch.models.field import FieldStatic
+    from enerf_torch.ops import scatter_accum as sa
+    from enerf_torch.ops.blockgrid import _trilinear_weights
+
+    B = 4096 * 32
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results = {}
+    for block in (4, 3):
+        meta = FieldStatic(bound=1.0, grid_block=block).grid_meta
+        T, RC = meta.total_rows, meta.row_cells
+        x = torch.rand(B, 3, device="cuda", generator=gen)
+        g = torch.randn(B, 2 * meta.num_levels, device="cuda", generator=gen)
+        pairs = sa.pair_inputs(x, g, meta)
+        P = pairs[0].shape[0]
+        got = sa.launch_kernel(*pairs, T, meta)
+        twin = sa.block_table_grad_reference(*pairs, T, meta)
+        torch.cuda.synchronize()
+        ok_k, ratio_k = k2_within_bound(got, pairs, T, meta)
+        ok_t, ratio_t = k2_within_bound(twin, pairs, T, meta)
+        max_abs = float((got - twin).abs().max())
+        ms = time_ms(lambda: sa.launch_kernel(*pairs, T, meta))
+        plain_ms = time_ms(lambda: sa.block_table_grad_reference(*pairs, T, meta), iters=5)
+        # the library call: index_add_ of the prebuilt dense rows, the
+        # scatter of the plain version and of the trainer's default backward
+        rid, lo, frac, gg = pairs
+        rows = (gg[:, :, None] * _trilinear_weights(lo, frac, meta)[:, None, :]).reshape(P, -1)
+        rid64, acc = rid.long(), torch.zeros(T, 2 * RC, device="cuda")
+        library_ms = time_ms(lambda: acc.index_add_(0, rid64, rows), iters=5)
+        del rows, acc
+        bound_ms, bound_by, nbytes = k2_bound(P, T, RC)
+        ok = ok_k and ok_t
+        print(f"[kernel] block_table_grad blk{block} {P} pairs -> [{T}, {2 * RC}]: "
+              f"|K2 - f64| / bound {ratio_k:.3e}, |f32 twin - f64| / bound {ratio_t:.3e} "
+              f"(bound 1e-5 * sum|g W| + 1e-7), |K2 - twin| max {max_abs:.3e} -> "
+              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({nbytes / 1e6:.1f} MB)")
+        if not ok:
+            raise AssertionError(f"K2 blk{block} is outside its bound of the float64 twin")
+        results[block] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return results
+
+
+def smoke_config(workspace, *extra):
     from enerf_torch.config import build_config
     return build_config([
         "--mode", "synthetic", "--H", "64", "--W", "64",
@@ -169,14 +254,40 @@ def smoke_config(workspace):
         "--hidden_dim", "64", "--hidden_dim_color", "64", "--geo_feat_dim", "15",
         "--batch_size_evs", "4096", "--march_samples", "64", "--compact_frac", "0.5",
         "--iters", "48", "--log_every", "8", "--seed", "0",
-        "--outdir", workspace])
+        "--val_idxs", "0", "--val_idxs", "20", "--eval_interval", "1",
+        "--outdir", workspace, *extra])
+
+
+def _timed_tail(trainer, tail):
+    """Wrap the per-epoch tail (checkpoint, evaluation, best checkpoint) of
+    `trainer` so each call adds its synchronized host time and march host
+    syncs to `tail`; evaluate's results land in tail["results"]."""
+    import torch
+    from enerf_torch.render.march import march_rays
+
+    def wrap(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0, s0 = time.time(), march_rays.host_syncs
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            tail[name] = tail.get(name, 0.0) + time.time() - t0
+            tail["syncs"] = tail.get("syncs", 0) + march_rays.host_syncs - s0
+            if name == "evaluate":
+                tail["results"] = out
+            return out
+        return run
+
+    trainer.ckpt.save = wrap("checkpoint", trainer.ckpt.save)
+    trainer.ckpt.save_best = wrap("best checkpoint", trainer.ckpt.save_best)
+    trainer.evaluate = wrap("evaluate", trainer.evaluate)
 
 
 def phase_main_path(workspace):
     import numpy as np
     import torch
     from enerf_torch.data.provider import make_providers
-    from enerf_torch.ops import fused_mlp
+    from enerf_torch.ops import fused_mlp, scatter_accum
     from enerf_torch.render.march import march_rays
     from enerf_torch.train.trainer import Trainer
 
@@ -189,34 +300,72 @@ def phase_main_path(workspace):
           f"fused head {trainer.static.use_fused_head}, compute {trainer.static.compute_dtype}")
     t0 = time.time()
     train, val = make_providers(cfg, device=trainer.device)
-    print(f"[main] synthetic data {cfg.H}x{cfg.W}: {time.time() - t0:.1f} s")
+    print(f"[main] synthetic data {cfg.H}x{cfg.W}: {time.time() - t0:.1f} s; "
+          f"{len(val.val_views())} val views")
     steps = 48
     train.steps_per_epoch = steps
+    tail = {}
+    _timed_tail(trainer, tail)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_mlp.fused_field_head.launches = 0
+    scatter_accum.block_table_grad.launches = 0
     march_rays.host_syncs = 0
     t0 = time.time()
-    trainer.train(train, max_epoch=1)
+    trainer.train(train, val, max_epoch=1)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = fused_mlp.fused_field_head.launches
-    syncs = march_rays.host_syncs
+    k2_launches = scatter_accum.block_table_grad.launches
+    tail_s = sum(v for k, v in tail.items() if k not in ("syncs", "results"))
+    step_s = wall - tail_s
+    syncs = march_rays.host_syncs - tail.get("syncs", 0)
     losses = [loss for _, loss in trainer.history]
     print(f"[main] losses at logged steps: "
           + ", ".join(f"{s}:{l:.5f}" for s, l in trainer.history))
-    print(f"[main] {steps} steps in {wall:.2f} s = {steps / wall:.3f} steps/s "
-          f"(3 occupancy updates included); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1 launches {launches}; "
-          f"march host syncs {syncs} ({syncs / steps:.1f} per step)")
+    print(f"[main] train(train, val, 1): {wall:.2f} s = {steps / wall:.3f} steps/s with the "
+          f"epoch tail; the {steps} steps {step_s:.2f} s = {steps / step_s:.3f} steps/s "
+          f"(3 occupancy updates included); tail "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in tail.items() if k not in ("syncs", "results"))
+          + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"K1 launches {launches} (evaluation included); K2 launches {k2_launches}; "
+          f"march host syncs in the steps {syncs} ({syncs / steps:.1f} per step), "
+          f"in the evaluation {tail.get('syncs', 0)}")
+    res = tail.get("results", {})
+    print("[main] eval: " + ", ".join(
+        f"{k} {res.get(k)}" for k in ("psnr", "ssim", "affine_a", "affine_b",
+                                      "psnr_corrected", "ssim_corrected")))
     if not (len(losses) == steps // cfg.log_every and np.isfinite(losses).all()):
         raise AssertionError(f"main path losses not all finite: {losses}")
     if trainer.occupancy.iter_density != 3:
         raise AssertionError(f"iter_density {trainer.occupancy.iter_density} != 3")
     if launches < 2 * steps:
         raise AssertionError(f"K1 launched {launches} times in {steps} steps")
+    if k2_launches:
+        raise AssertionError("the main path's table backward is index_add_, yet K2 launched")
+    if not all(np.isfinite(res.get(k, np.nan)) for k in ("psnr_corrected", "ssim_corrected")):
+        raise AssertionError(f"evaluation gave no finite corrected metrics: {res}")
     return trainer, train, val, launches
+
+
+def phase_resume(trainer, workspace):
+    """A new Trainer resumed from the 'latest' checkpoint holds the saved
+    params, EMA weights and step bit for bit."""
+    import torch
+    from enerf_torch.train.trainer import Trainer
+
+    t0 = time.time()
+    resumed = Trainer(trainer.cfg, device="cuda", workspace=workspace, use_checkpoint="latest")
+    same = (resumed.state.step == trainer.state.step and resumed.epoch == trainer.epoch
+            and all(torch.equal(resumed.state.params[k], p)
+                    and torch.equal(resumed.state.ema_params[k], trainer.state.ema_params[k])
+                    for k, p in trainer.state.params.items()))
+    print(f"[resume] Trainer(ckpt='latest') at step {resumed.state.step}, epoch "
+          f"{resumed.epoch}, in {time.time() - t0:.2f} s: params, EMA and step "
+          f"{'bit-equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("the resumed trainer differs from the saved state")
 
 
 def phase_breakdown(trainer, train):
@@ -301,6 +450,156 @@ def phase_inference(trainer, val):
         raise AssertionError("inference did not go through K1")
 
 
+def phase_k2_path():
+    """bench.py's march step (bench.py:295-360) at its reference shape,
+    built from the port's modules: 16 x 2 levels, blk4, separate marches,
+    8192 rays x 32 samples, compact_frac 0.25, bf16, 1 colour channel, the
+    ball bitfield, o = (0, 0, -2.5) and o + 0.01, pols 1, bg 0.5, C 0.2.
+    The same steps run from the same state with the same noise, with
+    fast_table_grad on (K2) and off (index_add_)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from enerf_torch.models.field import FieldStatic, init_field_params
+    from enerf_torch.ops import scatter_accum as sa
+    from enerf_torch.render.march import march_rays, render_rays_march
+    from enerf_torch.render.occupancy import ball_bitfield
+    from enerf_torch.train import losses
+    from enerf_torch.train.state import TrainState
+
+    n_rays, steps, dev = 8192, 4, "cuda"
+    gen = torch.Generator(device=dev).manual_seed(1)
+    d = torch.randn(n_rays, 3, device=dev, generator=gen)
+    d = d / d.norm(dim=-1, keepdim=True)
+    o = torch.tensor([[0.0, 0.0, -2.5]], device=dev).expand(n_rays, 3)
+    pols = torch.ones(n_rays, device=dev)
+    bg = torch.full((n_rays, 1), 0.5, device=dev)
+    bitfield = ball_bitfield(device=dev)
+    noise = [(torch.rand(n_rays, device=dev, generator=gen),
+              torch.rand(n_rays, device=dev, generator=gen)) for _ in range(steps)]
+    runs, pair_log = {True: [], False: []}, []
+    record = sa.pair_inputs
+
+    def recording(x, g, meta):  # K2's inputs of step 1, for its tolerance
+        out = record(x, g, meta)
+        pair_log.append(out)
+        return out
+
+    for fast in (True, False, False, True):  # in turns: one call, one card
+        first = not runs[fast]
+        static = FieldStatic(bound=1.0, out_dim_color=1, encoding="blockgrid",
+                             compute_dtype=torch.bfloat16, grid_block=4, num_levels=16,
+                             level_dim=2, fast_table_grad=fast)
+        state = TrainState(init_field_params(static, 0, dev), 1e-2, 10000)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sa.block_table_grad.launches = 0
+        march_rays.host_syncs = 0
+        step_losses, backward_s = [], 0.0
+        for i, (j1, j2) in enumerate(noise):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.time()
+            sa.pair_inputs = recording if (fast and first and i == 0) else record
+            state.zero_grad()
+            outs = [render_rays_march(state.params, static, bitfield, oo, d, num_samples=32,
+                                      max_steps=1024, bg_color=bg, perturb=True, jitter=j,
+                                      compact_frac=0.25)
+                    for oo, j in ((o, j1), (o + 0.01, j2))]
+            ll = [losses.log_intensity(out["image"], False) for out in outs]
+            loss = losses.event_loss((ll[1] - ll[0])[None], pols[None, :, None], 0.2)
+            torch.cuda.synchronize()
+            tb = time.time()
+            loss.backward()
+            torch.cuda.synchronize()
+            if i:
+                backward_s += time.time() - tb
+            if i == 0 and first:
+                grad1 = state.params["hash_table"].grad.clone()
+            state.apply_updates()
+            step_losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        sa.pair_inputs = record
+        run = dict(launches=sa.block_table_grad.launches, steps_s=(steps - 1) / wall,
+                   backward_ms=backward_s / (steps - 1) * 1e3,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30, base_gib=base / 2**30)
+        if first:
+            run["grad1"] = grad1
+        runs[fast].append(run)
+        print(f"[k2path] table backward {'K2' if fast else 'index_add_'}: losses {step_losses}; "
+              f"{run['steps_s']:.3f} steps/s over steps 2-{steps}, backward "
+              f"{run['backward_ms']:.1f} ms per step (synchronized); peak memory "
+              f"{run['peak_gib']:.2f} GiB ({run['base_gib']:.2f} GiB held before); "
+              f"K2 launches {run['launches']}; march host syncs "
+              f"{march_rays.host_syncs / steps:.1f} per step")
+        if not np.isfinite(step_losses).all():
+            raise AssertionError(f"K2 path losses not finite: {step_losses}")
+        del state
+    meta = FieldStatic(bound=1.0, grid_block=4).grid_meta
+    mag = sum(sa.block_table_grad_reference(rid, lo, frac, g.abs(), meta.total_rows, meta,
+                                            torch.float64) for rid, lo, frac, g in pair_log)
+    g_fast, g_plain = runs[True][0]["grad1"].double(), runs[False][0]["grad1"].double()
+    diff = (g_fast - g_plain).abs()
+    ratio = float((diff / (1e-5 * mag + 1e-7)).max())
+    # without the 1e-7 floor, on the cells that received any addend
+    ratio_rel = float((diff / (1e-5 * mag)).nan_to_num(0.0, 0.0, 0.0).max())
+    launches = [r["launches"] for r in runs[True]] + [r["launches"] for r in runs[False]]
+    ok = ratio <= 1.0 and launches == [2 * steps, 2 * steps, 0, 0]
+    print(f"[k2path] step-1 hash_table gradient, K2 vs index_add_: largest |g| "
+          f"{float(g_plain.abs().max()):.3e}, max |diff| {float(diff.max()):.3e}, "
+          f"max |diff| / (1e-5 * sum|g W| + 1e-7) {ratio:.3e} (without the 1e-7: "
+          f"{ratio_rel:.3e}) over {sum(p[0].shape[0] for p in pair_log)} pairs -> "
+          f"{'ok' if ok else 'FAIL'}")
+    for fast in (True, False):
+        rs = runs[fast]
+        print(f"[k2path] {'K2' if fast else 'index_add_'}, mean of 2 runs: "
+              f"{sum(r['steps_s'] for r in rs) / 2:.3f} steps/s, backward "
+              f"{sum(r['backward_ms'] for r in rs) / 2:.1f} ms per step, peak memory "
+              f"{max(r['peak_gib'] for r in rs):.2f} GiB")
+    if not ok:
+        raise AssertionError("the K2 path disagrees with the index_add_ path")
+    return runs[True][0]["launches"]
+
+
+def phase_no_event(workspace):
+    """8 main-path steps with the no-event pair and the device slerp."""
+    import numpy as np
+    from enerf_torch.data.provider import make_providers
+    from enerf_torch.train import losses
+    from enerf_torch.train.trainer import Trainer
+
+    cfg = smoke_config(workspace, "--negative_event_sampling", "1",
+                       "--precompute_evs_poses", "0")
+    trainer = Trainer(cfg, device="cuda", workspace=workspace)
+    train, _ = make_providers(cfg, device=trainer.device)
+    train.steps_per_epoch = 8
+    hinge, deltas = losses.no_event_loss, []
+
+    def recording(delta, C_thres, w_no_ev=1.0):  # the pairs' log-intensity changes
+        deltas.append(float(delta.detach().abs().max()))
+        return hinge(delta, C_thres, w_no_ev)
+
+    losses.no_event_loss = recording
+    t0 = time.time()
+    try:
+        trainer.train(train, max_epoch=1)
+    finally:
+        losses.no_event_loss = hinge
+    lne = trainer.last_aux.get("loss_no_evs", float("nan"))
+    print(f"[noev] 8 steps in {time.time() - t0:.2f} s (a checkpoint included): "
+          f"loss_no_evs {lne:.6f} at step {trainer.history[-1][0]}, loss "
+          f"{trainer.last_aux.get('loss')}; {train.noev_coords.shape[0]} time chunks, "
+          f"{cfg.batch_size_evs // 2} no-event pairs per step, largest |delta log I| per "
+          f"step {[round(x, 5) for x in deltas]} (the hinge starts at C = {cfg.C_thres})")
+    if not (np.isfinite(lne) and len(deltas) == 8):
+        raise AssertionError(f"loss_no_evs not finite or not computed: {lne}, {deltas}")
+
+
 def main():
     try:
         import torch
@@ -324,10 +623,15 @@ def main():
     try:
         phase_build()
         res = phase_kernels()
+        k2 = phase_k2_kernel()
         workspace = os.path.join(REPO, "build", "chip_smoke")
         trainer, train, val, launches = phase_main_path(workspace)
+        phase_resume(trainer, workspace)
         phase_inference(trainer, val)
         phase_breakdown(trainer, train)
+        del trainer, train, val
+        k2_launches = phase_k2_path()
+        phase_no_event(os.path.join(REPO, "build", "chip_smoke_noev"))
     except Exception:  # every phase's failure ends the run non-zero
         traceback.print_exc()
         print("[smoke] FAIL")
@@ -341,7 +645,12 @@ def main():
         "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
         "bound_by": bf["bound_by"], "library_ms": None,
         "float32": res["float32"],
-    }]}))
+    }, dict({
+        "name": "block_table_grad", "route": "cuda",
+        "source": "enerf_torch/csrc/block_table_grad.cu",
+        "replaces": "enerf_tpu/ops/scatter_accum.py:46",
+        "launches": k2_launches}, **k2[4], block3=k2[3]),
+    ]}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -295,8 +295,6 @@ def check_supported(cfg):
         missing.append("events=0 (frames mode)")
     elif not cfg.event_only:
         missing.append("event_only=0 (frame term)")
-    if cfg.negative_event_sampling:
-        missing.append("negative_event_sampling")
     if cfg.march_warmup > 0:
         missing.append("march_warmup > 0 (fixed-step renderer)")
     if not cfg.cuda_ray:
@@ -307,8 +305,6 @@ def check_supported(cfg):
         missing.append(f"encoding={cfg.encoding}")
     if cfg.bg_radius > 0:
         missing.append("bg_radius > 0 (background net)")
-    if not cfg.precompute_evs_poses:
-        missing.append("precompute_evs_poses=0 (device slerp)")
     if cfg.mode != "synthetic":
         missing.append(f"mode={cfg.mode} (dataset loaders)")
     if cfg.rand_pose >= 0:

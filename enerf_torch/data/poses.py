@@ -1,12 +1,14 @@
-"""Host-side pose interpolation (numpy + scipy).
+"""Pose interpolation: on the host (numpy + scipy) and on the device.
 
-The port's copy of the numpy part of enerf_tpu/data/poses.py (reference
-pose_utils.py:138-160): Slerp rotations + cubic translations at query
-times, used once when a dataset is built.  The on-device slerp
-(`interp_pose_device`, precompute_evs_poses=0) is not ported yet.
+Counterpart of enerf_tpu/data/poses.py (reference pose_utils.py:138-160).
+`make_pose_interpolator` (Slerp rotations + cubic translations, the port's
+own copy) runs once when a dataset is built; `interp_pose_device` (slerp +
+cubic Hermite on tensors) computes poses per batch instead, for
+precompute_evs_poses=0 and for the no-event pair's random times.
 """
 
 import numpy as np
+import torch
 from scipy.interpolate import interp1d
 from scipy.spatial.transform import Rotation as R
 from scipy.spatial.transform import Slerp
@@ -39,3 +41,57 @@ def mat_to_quat_np(rot):
     q = R.from_matrix(np.asarray(rot).reshape(-1, 3, 3)).as_quat()  # xyzw
     q = np.concatenate([q[:, 3:4], q[:, :3]], axis=1)
     return q.reshape(np.asarray(rot).shape[:-2] + (4,))
+
+
+def quat_to_mat(q):
+    """[..., 4] (w, x, y, z) -> [..., 3, 3]."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)
+
+
+def slerp_device(q0, q1, u):
+    """Batched quaternion slerp along the shortest arc.  q0, q1: [..., 4]; u: [...]."""
+    d = (q0 * q1).sum(-1)
+    q1 = torch.where(d[..., None] < 0, -q1, q1)
+    d = d.abs().clamp(-1.0, 1.0)
+    theta = torch.arccos(d)
+    sin_t = torch.sin(theta)
+    small = sin_t < 1e-6
+    safe = torch.where(small, torch.ones_like(sin_t), sin_t)
+    w0 = torch.where(small, 1.0 - u, torch.sin((1.0 - u) * theta) / safe)
+    w1 = torch.where(small, u, torch.sin(u * theta) / safe)
+    q = w0[..., None] * q0 + w1[..., None] * q1
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def interp_pose_device(key_ts, key_quats, key_trans, ts_q):
+    """Poses at query times, on the tensors' device.
+
+    key_ts: [K] sorted keyframe times; key_quats: [K, 4]; key_trans: [K, 3];
+    ts_q: [N].  Returns [N, 3, 4]: slerp rotations + cubic Hermite
+    translations with Catmull-Rom tangents on non-uniform knots.
+    """
+    K = key_ts.shape[0]
+    idx = (torch.searchsorted(key_ts, ts_q.contiguous(), right=True) - 1).clamp(0, K - 2)
+    t0, t1 = key_ts[idx], key_ts[idx + 1]
+    h = (t1 - t0).clamp(min=1e-12)
+    u = ((ts_q - t0) / h).clamp(0.0, 1.0)
+    q = slerp_device(key_quats[idx], key_quats[idx + 1], u)
+
+    p0, p1 = key_trans[idx], key_trans[idx + 1]
+    im = (idx - 1).clamp(min=0)
+    ip = (idx + 2).clamp(max=K - 1)
+    # central-difference tangents scaled to the local interval
+    m0 = (p1 - key_trans[im]) / (t1 - key_ts[im]).clamp(min=1e-12)[:, None] * h[:, None]
+    m1 = (key_trans[ip] - p0) / (key_ts[ip] - t0).clamp(min=1e-12)[:, None] * h[:, None]
+    u2 = (u * u)[:, None]
+    u3 = u2 * u[:, None]
+    uu = u[:, None]
+    tr = ((2 * u3 - 3 * u2 + 1) * p0 + (u3 - 2 * u2 + uu) * m0
+          + (-2 * u3 + 3 * u2) * p1 + (u3 - u2) * m1)
+    return torch.cat([quat_to_mat(q), tr[..., None]], dim=-1)

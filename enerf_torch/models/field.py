@@ -15,6 +15,7 @@ import math
 import torch
 
 from enerf_torch.ops.blockgrid import BlockGridMeta, block_encode, init_block_table
+from enerf_torch.ops.scatter_accum import block_encode_fast
 from enerf_torch.ops.sh import sh_encode, sh_output_dim
 from enerf_torch.ops.trunc_exp import trunc_exp
 
@@ -41,6 +42,7 @@ class FieldStatic:
         grid_block=4,
         encoding="blockgrid",
         use_fused_head=False,
+        fast_table_grad=False,  # table backward by kernel K2 (ops/scatter_accum)
         density_bias=0.0,
         compute_dtype=torch.float32,
     ):
@@ -61,6 +63,7 @@ class FieldStatic:
         self.encoding = encoding
         self.grid_block = int(grid_block)
         self.use_fused_head = use_fused_head
+        self.fast_table_grad = bool(fast_table_grad)
         self.density_bias = float(density_bias)
         self.compute_dtype = compute_dtype
         # reference network.py:36: desired_resolution = 2048 * bound
@@ -127,6 +130,8 @@ def _dir_encode(static, d):
 
 
 def _encode(params, static, x01):
+    if static.fast_table_grad:
+        return block_encode_fast(x01, params["hash_table"], static.grid_meta)
     return block_encode(x01, params["hash_table"], static.grid_meta)
 
 

@@ -13,7 +13,8 @@ and its backward never saves them: the table gradient is a plain
 `index_add_` of g (x) W into the rows, with the row ids and trilinear
 weights recomputed from the saved positions (the same design as the JAX
 package's linear-gather VJP).  Positions get no gradient (the port's
-callers pass ray samples, which are data).
+callers pass ray samples, which are data).  ops/scatter_accum.py holds the
+other table backward, kernel K2 (`FieldStatic(fast_table_grad=True)`).
 """
 
 import numpy as np
@@ -160,22 +161,29 @@ def _encode_chunk(x, table, meta):
     return torch.einsum("nlcr,nlr->nlc", rows, W.to(rows.dtype))
 
 
+def encode_forward(x01, table, meta, point_chunk):
+    """The encoder's forward pass in point chunks -> (enc [N, L*C], the
+    clipped positions [N, 3] f32, the out-of-box mask [N])."""
+    N = x01.shape[0]
+    x = x01.to(torch.float32)
+    oob = ((x < 0.0) | (x > 1.0)).any(dim=-1)
+    x = x.clamp(0.0, 1.0)
+    out = torch.cat([
+        _encode_chunk(x[s:s + point_chunk], table, meta)
+        for s in range(0, N, point_chunk)
+    ]) if N else table.new_zeros(0, meta.num_levels, meta.level_dim)
+    out = out.masked_fill(oob[:, None, None], 0.0)
+    return out.reshape(N, meta.output_dim), x, oob
+
+
 class _BlockEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, table, meta, point_chunk):
-        N = x.shape[0]
-        x = x.to(torch.float32)
-        oob = ((x < 0.0) | (x > 1.0)).any(dim=-1)
-        x = x.clamp(0.0, 1.0)
-        out = torch.cat([
-            _encode_chunk(x[s:s + point_chunk], table, meta)
-            for s in range(0, N, point_chunk)
-        ]) if N else table.new_zeros(0, meta.num_levels, meta.level_dim)
-        out = out.masked_fill(oob[:, None, None], 0.0)
+        out, x, oob = encode_forward(x, table, meta, point_chunk)
         ctx.save_for_backward(x, oob)
         ctx.meta, ctx.point_chunk = meta, point_chunk
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
-        return out.reshape(N, meta.output_dim)
+        return out
 
     @staticmethod
     def backward(ctx, g):

@@ -2,8 +2,8 @@
 
 Counterpart of enerf_tpu/train/losses.py (reference event_utils.py:23-107
 and utils.py:509-567): luma, lin-log, the C_thres and normalized event
-losses and the implicit-C telemetry.  The no-event hinge and the frame MSE
-come with the no-event pair and the frame term.
+losses, the no-event hinge and the implicit-C telemetry.  The frame MSE
+comes with the frame term.
 """
 
 import numpy as np
@@ -49,6 +49,13 @@ def event_loss(delta_linlog, pol, C_thres, event_only=True):
     dn = delta_linlog / (torch.linalg.vector_norm(delta_linlog, dim=1, keepdim=True) + EPS)
     pn = pol / (torch.linalg.vector_norm(pol, dim=1, keepdim=True) + EPS)
     return w * ((dn - pn) ** 2).mean()
+
+
+def no_event_loss(delta_linlog, C_thres, w_no_ev=1.0):
+    """Hinge on the log-intensity change of pixels without events
+    (utils.py:564-566): changes below the threshold cost nothing."""
+    Cno = C_thres if C_thres > 0 else 0.25
+    return w_no_ev * (delta_linlog.abs() - Cno).clamp(min=0.0).mean()
 
 
 def nanmedian(x):

@@ -24,6 +24,14 @@ class TrainState:
         self.sched = torch.optim.lr_scheduler.LambdaLR(
             self.opt, lambda s: 0.1 ** min(s / iters, 1.0))
 
+    def set_schedule_count(self, count):
+        """Put the LR schedule at `count` updates (a resumed checkpoint)."""
+        self.sched.last_epoch = count
+        lrs = [base * f(count) for base, f in zip(self.sched.base_lrs, self.sched.lr_lambdas)]
+        for group, lr in zip(self.opt.param_groups, lrs):
+            group["lr"] = lr
+        self.sched._last_lr = lrs
+
     def zero_grad(self):
         self.opt.zero_grad(set_to_none=True)
 

@@ -7,9 +7,11 @@ distortion regularizers; then Adam + EMA.
 
 Random draws (the background shared by the pair, the march jitter of each
 render) come from a torch.Generator, or from `noise` when a test hands in
-the JAX package's draws.  This slice has the march path only: the
-fixed-step renderer, the frame term (event_only=0), the no-event pair and
-the CLIP step raise NotImplementedError.
+the JAX package's draws.  With negative_event_sampling the step adds the
+no-event pair: two renders of a pixel without events at two nearby times,
+whose log-intensity change is held below the threshold by a hinge.  This
+port has the march path only: the fixed-step renderer, the frame term
+(event_only=0) and the CLIP step raise NotImplementedError.
 """
 
 from typing import Any, NamedTuple
@@ -40,6 +42,8 @@ class StepStatics(NamedTuple):
     share_march: bool = False
     w_opacity: float = 0.0
     w_distortion: float = 0.0
+    negative_event_sampling: bool = False
+    w_no_ev: float = 1.0
 
 
 def distortion_loss(weights, ts, dts):
@@ -81,13 +85,32 @@ def _render(params, ss, rays_o, rays_d, bg, jitter, occ_bitfield):
         compact_frac=ss.compact_frac, return_weights=ss.w_distortion > 0.0)
 
 
-def draw_noise(ss, n_rays, generator, device):
-    """The step's random draws: bg [1, C] and per-render jitter [N]."""
-    return {
-        "bg": torch.rand(1, ss.out_dim_color, device=device, generator=generator),
-        "jitter1": torch.rand(n_rays, device=device, generator=generator),
-        "jitter2": torch.rand(n_rays, device=device, generator=generator),
-    }
+def draw_noise(ss, n_rays, generator, device, n_no_ev=0):
+    """The step's random draws: the event pair's bg [1, C] and per-render
+    jitter [N]; with n_no_ev > 0 the no-event pair's bg [1, C] and jitter
+    [n_no_ev] too (the JAX step's k_bg, k1, k2 and k3, k4, k5)."""
+    def rand(*shape):
+        return torch.rand(*shape, device=device, generator=generator)
+
+    noise = {"bg": rand(1, ss.out_dim_color), "jitter1": rand(n_rays), "jitter2": rand(n_rays)}
+    if n_no_ev:
+        noise.update(bg_no_ev=rand(1, ss.out_dim_color), jitter_no_ev1=rand(n_no_ev),
+                     jitter_no_ev2=rand(n_no_ev))
+    return noise
+
+
+def _uses_no_ev(ss, batch):
+    return ss.negative_event_sampling and "rays_no_evs_o1" in batch
+
+
+def _render_pair(params, ss, batch, prefix, bg, jitter1, jitter2, occ):
+    """Both renders of a ray pair: one shared march (share_march) or one
+    march each, with its own jitter."""
+    o1, d1, o2, d2 = (batch[f"rays_{prefix}_{k}"] for k in ("o1", "d1", "o2", "d2"))
+    if ss.share_march:
+        return _render_pair_shared(params, ss, o1, d1, o2, d2, bg, jitter1, occ)
+    return (_render(params, ss, o1, d1, bg, jitter1, occ),
+            _render(params, ss, o2, d2, bg, jitter2, occ))
 
 
 def event_loss_fn(params, ss, batch, noise, occ):
@@ -95,20 +118,11 @@ def event_loss_fn(params, ss, batch, noise, occ):
     occ: the [CAS, H^3] occupancy bitfield the renders march through."""
     if not ss.event_only:
         raise NotImplementedError("enerf_torch: event_only=0 (frame term)")
-    if "rays_no_evs_o1" in batch:
-        raise NotImplementedError("enerf_torch: the no-event pair")
     N = batch["rays_evs_o1"].shape[0]
     # one random bg shared by both renders of the pair (utils.py:487)
     bg = noise["bg"].expand(N, ss.out_dim_color)
-    if ss.share_march:
-        out1, out2 = _render_pair_shared(
-            params, ss, batch["rays_evs_o1"], batch["rays_evs_d1"],
-            batch["rays_evs_o2"], batch["rays_evs_d2"], bg, noise["jitter1"], occ)
-    else:
-        out1 = _render(params, ss, batch["rays_evs_o1"], batch["rays_evs_d1"],
-                       bg, noise["jitter1"], occ)
-        out2 = _render(params, ss, batch["rays_evs_o2"], batch["rays_evs_d2"],
-                       bg, noise["jitter2"], occ)
+    out1, out2 = _render_pair(params, ss, batch, "evs", bg, noise["jitter1"],
+                              noise["jitter2"], occ)
     ll1 = losses.log_intensity(out1["image"], ss.use_luma, ss.linlog)
     ll2 = losses.log_intensity(out2["image"], ss.use_luma, ss.linlog)
     delta = ll2 - ll1
@@ -132,6 +146,16 @@ def event_loss_fn(params, ss, batch, noise, occ):
         l_op = ss.w_opacity * (-torch.log(ws * ws + (1.0 - ws) * (1.0 - ws))).mean()
         loss = loss + l_op
         aux["loss_opacity"] = l_op
+    if _uses_no_ev(ss, batch):
+        M = batch["rays_no_evs_o1"].shape[0]
+        bg2 = noise["bg_no_ev"].expand(M, ss.out_dim_color)
+        no1, no2 = _render_pair(params, ss, batch, "no_evs", bg2, noise["jitter_no_ev1"],
+                                noise["jitter_no_ev2"], occ)
+        nll1 = losses.log_intensity(no1["image"], ss.use_luma, True)
+        nll2 = losses.log_intensity(no2["image"], ss.use_luma, True)
+        lne = losses.no_event_loss(nll2 - nll1, ss.C_thres, ss.w_no_ev)
+        loss = loss + lne
+        aux["loss_no_evs"] = lne
     return loss, aux
 
 
@@ -140,8 +164,9 @@ def train_step_events(state, batch, ss, occ, noise=None, generator=None):
     Returns the detached loss terms; the gradients stay in state.params[k].grad
     until the next step."""
     if noise is None:
+        n_no_ev = batch["rays_no_evs_o1"].shape[0] if _uses_no_ev(ss, batch) else 0
         noise = draw_noise(ss, batch["rays_evs_o1"].shape[0], generator,
-                           batch["rays_evs_o1"].device)
+                           batch["rays_evs_o1"].device, n_no_ev)
     state.zero_grad()
     loss, aux = event_loss_fn(state.params, ss, batch, noise, occ)
     loss.backward()

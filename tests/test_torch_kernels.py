@@ -12,7 +12,8 @@ import torch
 
 import torch_parity  # noqa: F401  (one intra-op thread per xdist worker)
 
-from enerf_torch.ops import fused_mlp
+from enerf_torch.ops import fused_mlp, scatter_accum
+from enerf_torch.ops.blockgrid import BlockGridMeta
 
 
 @pytest.mark.gpu
@@ -42,3 +43,31 @@ def test_kernel_matches_twin_on_card(dtype):
         # bf16 rounding flips from the summation order (see the bf16 test)
         torch.testing.assert_close(s_k, s_p, rtol=3e-2, atol=1e-6)
         torch.testing.assert_close(c_k, c_p, rtol=0, atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [4, 3])
+def test_table_grad_kernel_matches_twin_on_card(block):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2 has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    meta = BlockGridMeta(num_levels=16, level_dim=2, block=block)
+    B = 70_000  # samples; x 16 levels, not a multiple of the 256-thread block
+    x = torch.rand(B, 3, device="cuda", generator=g)
+    g_out = torch.randn(B, 32, device="cuda", generator=g)
+    pairs = scatter_accum.pair_inputs(x, g_out, meta)
+    before = scatter_accum.block_table_grad.launches
+    got = scatter_accum.block_table_grad(*pairs, meta.total_rows, meta)
+    torch.cuda.synchronize()
+    assert scatter_accum.block_table_grad.launches == before + 1
+    rid, lo, frac, gg = pairs
+    ref64 = scatter_accum.block_table_grad_reference(*pairs, meta.total_rows, meta,
+                                                     dtype=torch.float64)
+    mag = scatter_accum.block_table_grad_reference(rid, lo, frac, gg.abs(), meta.total_rows,
+                                                   meta, dtype=torch.float64)
+    # atomics sum in any order: per cell within 1e-5 of the sum of the
+    # addends' magnitudes (plus 1e-7), against float64; the f32 twin too
+    bound = 1e-5 * mag + 1e-7
+    assert ((got.double() - ref64).abs() <= bound).all()
+    twin = scatter_accum.block_table_grad_reference(*pairs, meta.total_rows, meta)
+    assert ((twin.double() - ref64).abs() <= bound).all()

@@ -59,8 +59,9 @@ def test_config_parses_tpu_flags_and_refuses_missing_paths():
     cfg = _cfg("--fuse_steps", "4", "--segsum_grad", "1", "--mesh_shape", "2")
     assert cfg.fp16 and cfg.cuda_ray and cfg.preload and cfg.ff
     check_supported(cfg)  # TPU-only options are accepted (and ignored)
-    for extra in (["--negative_event_sampling", "1"], ["--march_warmup", "10"],
-                  ["--event_only", "0"], ["--bg_radius", "2"]):
+    # the no-event pair and the device slerp are ported
+    check_supported(_cfg("--negative_event_sampling", "1", "--precompute_evs_poses", "0"))
+    for extra in (["--march_warmup", "10"], ["--event_only", "0"], ["--bg_radius", "2"]):
         with pytest.raises(NotImplementedError):
             check_supported(_cfg(*extra))
     cfg = build_config(["--config", os.path.join(REPO, "configs", "synthetic_demo.txt"),
