@@ -27,15 +27,17 @@ from enerf_torch.ops.blockgrid import _trilinear_weights, block_address, encode_
 PAIR_CHUNK = 1 << 20  # pairs per chunk of the plain version's dense rows
 
 
-def pair_inputs(x, g_out, meta):
+def pair_inputs(x, g_out, meta, oob=None):
     """K2's inputs for clipped positions x [N, 3] and the gradient of the
-    encoding g_out [N, L * 2] (zero for out-of-box samples):
+    encoding g_out [N, L * 2], zeroed for the out-of-box samples `oob` [N]:
     (rid [N*L] int32, lo [N*L, 3] int32, frac [N*L, 3] f32, g [N*L, 2] f32)."""
     rid, lo, frac = block_address(x, meta)
     rid = rid + meta.tensors(x.device)["offsets"][None, :]
+    g = g_out.reshape(-1, meta.num_levels, 2).to(torch.float32)
+    if oob is not None:
+        g = g.masked_fill(oob[:, None, None], 0.0)
     return (rid.reshape(-1).to(torch.int32), lo.reshape(-1, 3).to(torch.int32),
-            frac.reshape(-1, 3).contiguous(),
-            g_out.reshape(-1, 2).to(torch.float32).contiguous())
+            frac.reshape(-1, 3).contiguous(), g.reshape(-1, 2).contiguous())
 
 
 def block_table_grad_reference(rid, lo, frac, g, total_rows, meta, dtype=torch.float32):
@@ -125,9 +127,7 @@ class _BlockEncodeFast(torch.autograd.Function):
     def backward(ctx, g_out):
         x, oob = ctx.saved_tensors
         meta = ctx.meta
-        g = g_out.reshape(-1, meta.num_levels, 2).to(torch.float32)
-        g = g.masked_fill(oob[:, None, None], 0.0)
-        grad = block_table_grad(*pair_inputs(x, g, meta), meta.total_rows, meta)
+        grad = block_table_grad(*pair_inputs(x, g_out, meta, oob), meta.total_rows, meta)
         gx = (torch.zeros(x.shape, dtype=ctx.x_dtype, device=x.device)
               if ctx.needs_input_grad[0] else None)
         return gx, grad.to(ctx.table_dtype), None, None

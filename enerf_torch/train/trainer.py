@@ -103,8 +103,9 @@ class Trainer:
         self.epoch = 0
         self.best_metric = -np.inf
         self.stats = {"loss": [], "psnr": []}
-        self.history = []   # (step, loss) of every logged step
-        self.last_aux = {}  # the loss terms of the last logged step, as floats
+        self.history = []     # (step, {loss term: float}) of every logged step
+        self.last_eval = {}   # the results of the last evaluate() in train()
+        self.epoch_seconds = {}  # the last epoch's steps and tail, synchronized
         self._guard_strikes = 0
         self.log(f"[port] device {self.device}; ignoring TPU-only options: "
                  + ", ".join(f"{k}={getattr(cfg, k)}" for k in TPU_ONLY))
@@ -139,23 +140,30 @@ class Trainer:
         t_start, start_step = time.time(), global_step
 
         def log_aux(aux, step):
-            self.last_aux = {k: float(v) for k, v in aux.items()}
-            loss = self.last_aux["loss"]
+            aux = {k: float(v) for k, v in aux.items()}
+            loss = aux["loss"]
             if not np.isfinite(loss):
                 self.log(f"[nan] non-finite loss {loss} at step {step}")
-            extras = " ".join(f"{k}={v:.5f}" for k, v in self.last_aux.items()
+            extras = " ".join(f"{k}={v:.5f}" for k, v in aux.items()
                               if k != "loss" and not k.startswith("implC_"))
             self.log(f"[train] epoch {self.epoch} step {step} loss={loss:.5f} "
                      f"{extras} ({(step - start_step) / (time.time() - t_start):.2f} it/s)")
-            self.history.append((step, loss))
+            self.history.append((step, aux))
             return loss
+
+        def timed(name, fn, *args):
+            t0 = self._clock()
+            out = fn(*args)
+            self.epoch_seconds[name] = self._clock() - t0
+            return out
 
         for epoch in range(self.epoch + 1, max_epoch + 1):
             self.epoch = epoch
             if getattr(provider, "noev_coords", None) is not None:
                 # no-event loss epoch gate (reference utils.py:548)
                 provider.use_no_ev = epoch > cfg.epoch_start_noEvLoss
-            epoch_losses = []
+            epoch_losses, self.epoch_seconds = [], {}
+            t_steps = self._clock()
             for _ in range(steps_per_epoch):
                 freeze = cfg.occ_freeze_after > 0 and global_step >= cfg.occ_freeze_after
                 if global_step % 16 == 0 and not freeze:
@@ -170,27 +178,38 @@ class Trainer:
                 global_step += 1
                 if global_step % cfg.log_every == 0:
                     epoch_losses.append(log_aux(aux, global_step))
+            self.epoch_seconds["steps"] = self._clock() - t_steps
 
             if epoch_losses:
                 self.stats["loss"].append(float(np.mean(epoch_losses)))
             if epoch % max(cfg.ckpt_interval, 1) == 0 or epoch == max_epoch:
-                self.ckpt.save(self.state, self.occupancy, epoch, self.stats)
+                timed("checkpoint", self.ckpt.save, self.state, self.occupancy, epoch,
+                      self.stats)
             if valid_provider is not None and epoch % cfg.eval_interval == 0:
-                results = self.evaluate(valid_provider)
+                results = self.last_eval = timed("evaluate", self.evaluate, valid_provider)
                 metric = results.get("psnr_corrected", results.get("psnr", 0.0))
                 self.stats["psnr"].append(metric)
                 if metric > self.best_metric:
                     self.best_metric = metric
                     self.stats["best_metric"] = float(metric)
-                    self.ckpt.save_best(self.state, self.occupancy, epoch, self.stats)
+                    timed("best checkpoint", self.ckpt.save_best, self.state,
+                          self.occupancy, epoch, self.stats)
                 if self._eval_log(results, global_step):
                     self.log(f"[guard] collapse: halting at epoch {epoch} — "
                              f"{cfg.guard_patience} consecutive bad evals (best corrected "
                              f"{self.best_metric:.2f} dB is checkpointed); rerun from "
                              "the best ckpt with a lower lr to continue")
                     break
+            self.log(f"[epoch] {epoch}: " + ", ".join(
+                f"{k} {v:.2f} s" for k, v in self.epoch_seconds.items()))
         self.ckpt.wait()
         self.log(f"[train] done at epoch {self.epoch}, step {global_step}")
+
+    def _clock(self):
+        """Host seconds, once the device's queued work has finished."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.time()
 
     def _eval_log(self, results, global_step):
         """Append the eval record to cfg.eval_log (if set) and run the

@@ -69,5 +69,6 @@ def test_table_grad_kernel_matches_twin_on_card(block):
     # addends' magnitudes (plus 1e-7), against float64; the f32 twin too
     bound = 1e-5 * mag + 1e-7
     assert ((got.double() - ref64).abs() <= bound).all()
+    assert (got[mag == 0] == 0).all()  # cells with no addend stay exactly zero
     twin = scatter_accum.block_table_grad_reference(*pairs, meta.total_rows, meta)
     assert ((twin.double() - ref64).abs() <= bound).all()

@@ -84,7 +84,7 @@ def test_trainer_cpu_run_trains_with_occupancy_updates(tmp_path):
     assert trainer.state.step == 17
     # occupancy updates before steps 0 and 16
     assert trainer.occupancy.iter_density == 2
-    losses = [loss for _, loss in trainer.history]
+    losses = [aux["loss"] for _, aux in trainer.history]
     assert len(losses) == 17 and np.isfinite(losses).all()
     v = val.val_views()[0]
     img, depth = trainer.render_view(v["pose"], v["intrinsics"], v["H"], v["W"])
