@@ -9,7 +9,12 @@ Phases (one line each; any failure exits non-zero before the result lines):
      the -Xptxas -v register / shared-memory / spill lines;
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes, with the stated tolerances; kernel, plain, library and
-     bound times (K1 fused_field_head; K2 block_table_grad at block 4 and 3);
+     bound times (K1 fused_field_head; K2 block_table_grad at block 4 and 3;
+     K3 group_gather, bit-exact, at the gather benchmark's default shape and
+     at the block-grid table's);
+  3b. gather benchmark: enerf_torch.tools.bench_gather at its defaults and
+     with --rows 97824 --d 250, every variant's rows/s and GB/s (the path
+     that runs K3);
   4. main path: the --ff -O event trainer at full field width (16 x 2
      levels, blk4, 2^19 hash budget, hidden 64, geo 15, SH 4) on the
      synthetic event scene, one epoch of 48 steps (occupancy updates at
@@ -25,7 +30,16 @@ Phases (one line each; any failure exits non-zero before the result lines):
      must agree within K2's tolerance, scaled to the gradients' size;
   8. no-event pair: 8 main-path steps with negative_event_sampling and
      precompute_evs_poses=0 (the device slerp); loss_no_evs must be logged
-     and finite at every step, and > 0 at one step at least.
+     and finite at every step, and > 0 at one step at least;
+  9. default path: configs/synthetic_demo.txt --event_only 0 (the path of
+     the published configs: hash grid 16 x 2, 2^19, unfused MLPs, 128
+     fixed steps, the frame term), one epoch of 48 steps through
+     train(train, val, 1) with a checkpoint and the evaluation of 2 val
+     views (the affine correction applied to the same renders), a resumed
+     Trainer bit-equal, and one more step split into parts;
+ 10. frames on the march: --ff -O --event_only 0 --march_warmup 4, 8 steps:
+     mark_untrained_grid, 4 fixed-step steps with remat, 4 march steps
+     through K1; loss_frames finite at every step.
 Then a `{"kernels": [...]}` line, the card line, and last the result line
 `{"ok": true, "device": {...}}`.
 """
@@ -243,7 +257,7 @@ def phase_k2_kernel():
     gen = torch.Generator(device="cuda").manual_seed(2)
     results = {}
     for block in (4, 3):
-        meta = FieldStatic(bound=1.0, grid_block=block).grid_meta
+        meta = FieldStatic(bound=1.0, encoding="blockgrid", grid_block=block).grid_meta
         T, RC = meta.total_rows, meta.row_cells
         x = torch.rand(B, 3, device="cuda", generator=gen)
         g = torch.randn(B, 2 * meta.num_levels, device="cuda", generator=gen)
@@ -278,6 +292,65 @@ def phase_k2_kernel():
         results[block] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
     return results
+
+
+def k3_bound(groups, d):
+    """Least time for K3's work: each 8-row group read once and written
+    once (2 x 32 d bytes) plus its 4-byte index; no arithmetic."""
+    nbytes = groups * (2 * 32 * d + 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def phase_k3_kernel():
+    """K3 against its plain version (one index_select, also the library
+    call) at the gather benchmark's default shape and at the block-grid
+    table's (97,824 rows x 250 f32), 262,144 random groups: bit-exact."""
+    import torch
+    from enerf_torch.ops import group_gather as gg
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    results = {}
+    for rows, d in ((134_272, 128), (97_824, 250)):
+        T, groups = rows - rows % 8, (1 << 21) // 8
+        table = torch.randn(T, d, device="cuda", generator=gen)
+        gidx = torch.randint(0, T // 8, (groups,), device="cuda", generator=gen,
+                             dtype=torch.int32)
+        got = gg.launch_kernel(gidx, table)
+        ref = gg.group_gather_reference(gidx, table)
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(got, ref))
+        max_abs = float((got - ref).abs().max())
+        del got, ref
+        ms = time_ms(lambda: gg.launch_kernel(gidx, table))
+        plain_ms = time_ms(lambda: gg.group_gather_reference(gidx, table))
+        bound_ms, bound_by, nbytes = k3_bound(groups, d)
+        print(f"[kernel] group_gather {groups} groups of 8 x {d} f32 from [{T}, {d}]: "
+              f"bit-exact {exact} (max |diff| {max_abs:.1e}) -> {'ok' if exact else 'FAIL'}; "
+              f"kernel {ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s moved), plain = library "
+              f"(index_select) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({nbytes / 1e9:.3f} GB)")
+        if not exact:
+            raise AssertionError(f"K3 D={d} differs from its plain version")
+        results[d] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    return results
+
+
+def phase_gather_bench():
+    """The path that runs K3: the port's gather benchmark at its defaults
+    and at the block-grid table's shape, K3's launch count read around it."""
+    from enerf_torch.ops import group_gather as gg
+    from enerf_torch.tools import bench_gather
+
+    gg.group_gather.launches = 0
+    results = bench_gather.main([]) + bench_gather.main(["--rows", "97824", "--d", "250"])
+    launches = gg.group_gather.launches
+    k3 = [r for r in results if r["variant"].startswith("group_gather8")]
+    print(f"[bench] {len(results)} variants timed; K3 launches {launches}")
+    if len(results) != 12 or len(k3) != 6 or launches == 0:
+        raise AssertionError(f"gather benchmark incomplete: {len(results)} lines, "
+                             f"K3 launches {launches}")
+    return launches
 
 
 def smoke_config(workspace, *extra):
@@ -592,6 +665,176 @@ def phase_no_event(workspace):
         raise AssertionError(f"loss_no_evs not finite, not logged or never > 0: {lne}")
 
 
+def default_config(workspace):
+    from enerf_torch.config import build_config
+    return build_config([
+        "--config", os.path.join(REPO, "configs", "synthetic_demo.txt"), "--event_only", "0",
+        "--iters", "48", "--log_every", "8", "--seed", "0", "--val_idxs", "0",
+        "--val_idxs", "20", "--eval_interval", "1", "--outdir", workspace])
+
+
+def phase_default_path(workspace):
+    """configs/synthetic_demo.txt --event_only 0: the hash grid, the unfused
+    MLPs, the fixed-step renderer and the frame term, one epoch of 48 steps
+    with a checkpoint and the evaluation of 2 val views."""
+    import numpy as np
+    import torch
+    from enerf_torch.data.provider import make_providers
+    from enerf_torch.ops import fused_mlp, group_gather, scatter_accum
+    from enerf_torch.train.trainer import Trainer
+
+    cfg = default_config(workspace)
+    trainer = Trainer(cfg, workspace=workspace)
+    meta = trainer.static.grid_meta
+    print(f"[default] field: {trainer.static.encoding} {meta.num_levels}x{meta.level_dim}, "
+          f"2^{meta.log2_hashmap_size} budget, {meta.total_entries} entries "
+          f"({meta.total_entries * meta.level_dim * 4 / 1e6:.1f} MB table, "
+          f"{int(meta.is_hashed.sum())} hashed levels), compute {trainer.static.compute_dtype}, "
+          f"{cfg.num_steps} fixed steps, occupancy {trainer.occupancy}; "
+          f"{cfg.batch_size_evs} event pairs + {cfg.num_rays} frame rays per step")
+    t0 = time.time()
+    train, val = make_providers(cfg)
+    print(f"[default] synthetic data {cfg.H}x{cfg.W} with {train.frames.shape[0]} frames: "
+          f"{time.time() - t0:.1f} s")
+    steps = 48
+    train.steps_per_epoch = steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = (fused_mlp.fused_field_head, scatter_accum.block_table_grad,
+              group_gather.group_gather)
+    for c in counts:
+        c.launches = 0
+    t0 = time.time()
+    trainer.train(train, val, max_epoch=1)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = [c.launches for c in counts]
+    secs = trainer.epoch_seconds
+    hist = trainer.history
+    lf = [aux["loss_frames"] for _, aux in hist]
+    print("[default] losses at logged steps: " + ", ".join(
+        f"{s}: loss {aux['loss']:.5f} evs {aux['loss_evs']:.5f} frames {aux['loss_frames']:.5f}"
+        for s, aux in hist))
+    print(f"[default] train(train, val, 1): {wall:.2f} s = {steps / wall:.3f} steps/s with the "
+          f"epoch tail; the {steps} steps {secs['steps']:.2f} s = "
+          f"{steps / secs['steps']:.3f} steps/s; tail "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items() if k != "steps")
+          + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel "
+          f"launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]} (none on this path: "
+          "the JAX package runs it without Pallas)")
+    res = trainer.last_eval
+    # with the frame term JAX's evaluation applies no affine correction
+    # (trainer.py:687); the smoke applies the event-only correction to the
+    # same renders, through the trainer's own function
+    views = val.val_views()
+    preds = [trainer.render_view(v["pose"], v["intrinsics"], v["H"], v["W"])[0] for v in views]
+    corr = trainer.affine_corrected(preds, [v["gt"] for v in views])
+    print("[default] eval (trainer): " + ", ".join(f"{k} {res.get(k)}" for k in ("psnr", "ssim"))
+          + "; affine-corrected (the same renders): "
+          + ", ".join(f"{k} {corr[k]}" for k in ("affine_a", "affine_b", "psnr_corrected",
+                                                 "ssim_corrected")))
+    if not (len(hist) == steps // cfg.log_every and np.isfinite(lf).all() and max(lf) > 0
+            and np.isfinite([aux["loss"] for _, aux in hist]).all()):
+        raise AssertionError(f"default path losses not finite or loss_frames never > 0: {hist}")
+    if not all(np.isfinite(x) for x in (res.get("psnr", np.nan), res.get("ssim", np.nan),
+                                        corr["psnr_corrected"], corr["ssim_corrected"])):
+        raise AssertionError(f"evaluation gave no finite metrics: {res}, {corr}")
+    return trainer, train
+
+
+def phase_default_breakdown(trainer, train):
+    """Host-clock split of one more default-path step, each part ending in
+    a synchronize."""
+    import torch
+    from enerf_torch.train import losses
+    from enerf_torch.train.step import _render, draw_noise
+
+    ss, state = trainer.ss, trainer.state
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = parts.get(name, 0.0) + (time.time() - t0) * 1e3
+        return out
+
+    batch = timed("batch", lambda: train.train_step_batch(trainer.generator))
+    N, Nf = batch["pols"].shape[0], batch["rays_o"].shape[0]
+    noise = draw_noise(ss, N, trainer.generator, trainer.device, n_frames=Nf)
+    state.zero_grad()
+    bg = noise["bg"].expand(N, ss.out_dim_color)
+    outs = [timed("two event renders", lambda i=i: _render(
+        state.params, ss, batch[f"rays_evs_o{i}"], batch[f"rays_evs_d{i}"], bg,
+        noise[f"jitter{i}"], None)) for i in (1, 2)]
+    frame = timed("frame render", lambda: _render(
+        state.params, ss, batch["rays_o"], batch["rays_d"], noise["bg_frames"],
+        noise["jitter_frames"], None))
+
+    def loss_backward():
+        delta = (losses.log_intensity(outs[1]["image"], ss.use_luma, ss.linlog)
+                 - losses.log_intensity(outs[0]["image"], ss.use_luma, ss.linlog))
+        loss = losses.event_loss(delta[None], batch["pols"][None, :, None], ss.C_thres,
+                                 event_only=False)
+        loss = loss + ss.weight_loss_rgb * ((frame["image"] - batch["images"]) ** 2).mean()
+        loss.backward()
+
+    timed("loss + backward", loss_backward)
+    timed("adam + ema", state.apply_updates)
+    samples = (2 * N + Nf) * ss.num_steps
+    print("[breakdown] default path, one step, ms (host clock, synchronized): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f"; {samples} samples ({2 * N} event + {Nf} frame rays x {ss.num_steps} steps)")
+
+
+def phase_march_warmup(workspace):
+    """--ff -O --event_only 0 --march_warmup 4: the untrained cells marked
+    from the frame poses, steps 0-3 on the fixed-step renderer with remat
+    (no K1), steps 4-7 on the march (K1 once per render, 3 renders)."""
+    import numpy as np
+    import torch
+    from enerf_torch.data.provider import make_providers
+    from enerf_torch.ops import fused_mlp
+    from enerf_torch.render.march import march_rays
+    from enerf_torch.render.occupancy import init_occupancy, mark_untrained_grid
+    from enerf_torch.train.trainer import Trainer
+
+    cfg = smoke_config(workspace, "--event_only", "0", "--march_warmup", "4",
+                       "--log_every", "1")
+    trainer = Trainer(cfg, workspace=workspace)
+    train, _ = make_providers(cfg)
+    train.steps_per_epoch = 8
+    fused_mlp.fused_field_head.launches = 0
+    march_rays.host_syncs = 0
+    t0 = time.time()
+    trainer.train(train, max_epoch=1)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fused_mlp.fused_field_head.launches
+    untrained = float((trainer.occupancy.density_grid == -1.0).float().mean())
+    # the 40 frame cameras of the orbit may see every cell; one camera alone
+    # leaves most of the grid unseen
+    one = mark_untrained_grid(init_occupancy(cfg.bound, "cuda"), train.train_poses[:1],
+                              train.intrinsics, cfg.bound)
+    one_cam = float((one.density_grid == -1.0).float().mean())
+    lf = [aux.get("loss_frames", float("nan")) for _, aux in trainer.history]
+    print(f"[warmup] 8 steps in {wall:.2f} s (a checkpoint included): cells marked untrained "
+          f"{untrained:.4f} of the grid from {len(train.train_poses)} frame cameras "
+          f"({one_cam:.4f} from the first camera alone); "
+          f"loss_frames per step {[f'{x:.4e}' for x in lf]}; "
+          f"K1 launches {launches} (3 renders x 4 march steps = 12); march host syncs "
+          f"{march_rays.host_syncs}")
+    if not (len(lf) == 8 and np.isfinite(lf).all()):
+        raise AssertionError(f"loss_frames not finite at every step: {lf}")
+    if launches != 12 or march_rays.host_syncs == 0:
+        raise AssertionError(f"expected 4 warm steps without K1 and 4 march steps with it: "
+                             f"K1 launches {launches}, host syncs {march_rays.host_syncs}")
+    if not (0.0 <= untrained < one_cam < 1.0):
+        raise AssertionError(f"mark_untrained_grid marked {untrained} of the cells "
+                             f"({one_cam} from one camera)")
+
+
 def main():
     try:
         import torch
@@ -616,6 +859,8 @@ def main():
         phase_build()
         res = phase_kernels()
         k2 = phase_k2_kernel()
+        k3 = phase_k3_kernel()
+        k3_launches = phase_gather_bench()
         workspace = os.path.join(REPO, "build", "chip_smoke")
         trainer, train, val, launches = phase_main_path(workspace)
         phase_resume(trainer, workspace)
@@ -624,6 +869,12 @@ def main():
         del trainer, train, val
         k2_launches = phase_k2_path()
         phase_no_event(os.path.join(REPO, "build", "chip_smoke_noev"))
+        workspace = os.path.join(REPO, "build", "chip_smoke_default")
+        trainer, train = phase_default_path(workspace)
+        phase_resume(trainer, workspace)
+        phase_default_breakdown(trainer, train)
+        del trainer, train
+        phase_march_warmup(os.path.join(REPO, "build", "chip_smoke_warmup"))
     except Exception:  # every phase's failure ends the run non-zero
         traceback.print_exc()
         print("[smoke] FAIL")
@@ -642,6 +893,11 @@ def main():
         "source": "enerf_torch/csrc/block_table_grad.cu",
         "replaces": "enerf_tpu/ops/scatter_accum.py:46",
         "launches": k2_launches}, **k2[4], block3=k2[3]),
+        dict({
+            "name": "group_gather", "route": "cuda",
+            "source": "enerf_torch/csrc/group_gather.cu",
+            "replaces": "scripts/bench_gather.py:62",
+            "launches": k3_launches}, **k3[128], block_grid_table=k3[250]),
     ]}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

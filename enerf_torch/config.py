@@ -293,14 +293,6 @@ def check_supported(cfg):
     missing = []
     if not cfg.events:
         missing.append("events=0 (frames mode)")
-    elif not cfg.event_only:
-        missing.append("event_only=0 (frame term)")
-    if cfg.march_warmup > 0:
-        missing.append("march_warmup > 0 (fixed-step renderer)")
-    if not cfg.cuda_ray:
-        missing.append("cuda_ray=0 (fixed-step renderer)")
-    if not (cfg.ff or cfg.tcnn) and cfg.encoding in ("auto", "hashgrid"):
-        missing.append("hashgrid encoding")
     if cfg.encoding in ("frequency", "none"):
         missing.append(f"encoding={cfg.encoding}")
     if cfg.bg_radius > 0:

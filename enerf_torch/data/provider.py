@@ -2,10 +2,11 @@
 
 Counterpart of enerf_tpu/data/provider.py (reference nerf/provider.py).
 This port has the synthetic branch of `make_providers`, the
-`EventProvider` for event-only training (per-event poses precomputed on
-the host, or interpolated on the device per batch with
-precompute_evs_poses=0), its no-event pairs (negative_event_sampling), and
-the `FramesProvider` as the source of validation and test views.
+`EventProvider` (per-event poses precomputed on the host, or interpolated
+on the device per batch with precompute_evs_poses=0), its no-event pairs
+(negative_event_sampling), its frames for the frame term of event_only=0
+(a batch of random pixel rays of one random frame per step), and the
+`FramesProvider` as the source of validation and test views.
 Everything a step samples lives on the provider's device, and every draw
 comes from the caller's torch.Generator, so a batch costs no host-device
 transfer and no sync.
@@ -14,10 +15,11 @@ transfer and no sync.
 import numpy as np
 import torch
 
+from enerf_torch.backend import resolve_device
 from enerf_torch.data import synthetic
 from enerf_torch.data.events import build_event_chains, sample_event_batch
 from enerf_torch.data.poses import interp_pose_device, make_pose_interpolator, mat_to_quat_np
-from enerf_torch.data.rays import get_event_rays
+from enerf_torch.data.rays import get_event_rays, get_rays_sampled
 
 
 class FramesProvider:
@@ -75,7 +77,8 @@ class EventProvider:
     def __init__(self, events, hf_ts, hf_poses, intrinsics, H, W, batch_size_evs=4096,
                  accumulate_evs=False, acc_max_num_evs=0, steps_per_epoch=100,
                  precompute_evs_poses=True, negative_event_sampling=False,
-                 noev_chunk_frac=0.05, device="cpu"):
+                 noev_chunk_frac=0.05, frames=None, frame_poses=None, num_rays=4096,
+                 device="cpu"):
         self.device = torch.device(device)
         self.chains, ev_ts_sorted = build_event_chains(events, device=self.device)
         # keyframe poses as (quat, trans) for the device interpolation
@@ -103,6 +106,18 @@ class EventProvider:
         self.accumulate_evs = accumulate_evs
         self.acc_max_num_evs = acc_max_num_evs
         self.steps_per_epoch = steps_per_epoch
+        self.num_rays = num_rays
+        self.frames = None
+        if frames is not None:
+            # frames [F, H, W, C] on the device as [F, H*W, C]; their poses
+            # are the cameras mark_untrained_grid reads (`train_poses`)
+            self.frame_H, self.frame_W = frames.shape[1:3]
+            self.frames = torch.as_tensor(
+                np.asarray(frames, np.float32).reshape(frames.shape[0], -1, frames.shape[-1]),
+                device=self.device)
+            self.frame_poses = torch.as_tensor(np.asarray(frame_poses), dtype=torch.float32,
+                                               device=self.device)
+            self.train_poses = np.asarray(frame_poses)
 
     def _event_poses(self, idx):
         """Poses of flat event indices: the precomputed gather or the device
@@ -141,16 +156,34 @@ class EventProvider:
         batch = dict(rays, pols=samp["pols"])
         if self.noev_coords is not None and self.use_no_ev:
             batch.update(self._no_event_rays(generator))
+        if self.frames is not None:
+            batch.update(self._frame_rays(generator))
         return batch
 
+    def _frame_rays(self, generator, fi=None, inds=None):
+        """num_rays random pixel rays of one random frame and their ground
+        truth (reference provider.py:427-435): dict(rays_o, rays_d [N, 3],
+        images [N, C]).  `fi` ([1] frame index) and `inds` are drawn
+        unless handed in; index_select keeps the draw on the device."""
+        if fi is None:
+            fi = torch.randint(0, self.frames.shape[0], (1,), device=self.device,
+                               generator=generator)
+        rays = get_rays_sampled(self.frame_poses.index_select(0, fi)[0], self.intrinsics,
+                                self.frame_H, self.frame_W, self.num_rays, generator, inds)
+        return {"rays_o": rays["rays_o"], "rays_d": rays["rays_d"],
+                "images": self.frames.index_select(0, fi)[0][rays["inds"]]}
 
-def make_providers(cfg, device="cpu"):
+
+def make_providers(cfg, device=None):
     """(train_provider, val_provider) for mode=synthetic: the in-process
-    event simulator (enerf_tpu's make_providers, synthetic branch)."""
+    event simulator (enerf_tpu's make_providers, synthetic branch); with
+    event_only=0 the train provider also serves the simulator's frames.
+    `device=None` is the CUDA device (backend.resolve_device)."""
+    device = resolve_device(device)
     if cfg.mode != "synthetic":
         raise NotImplementedError(f"enerf_torch: dataset mode {cfg.mode!r}")
-    if not (cfg.events and cfg.event_only):
-        raise NotImplementedError("enerf_torch: only event_only=1 training")
+    if not cfg.events:
+        raise NotImplementedError("enerf_torch: frames mode (events=0) training")
     data = synthetic.simulate_events(
         H=cfg.H, W=cfg.W, C=abs(cfg.C_thres) if cfg.C_thres > 0 else 0.2,
         n_frames=cfg.syn_frames, rich=int(cfg.syn_rich))
@@ -163,5 +196,8 @@ def make_providers(cfg, device="cpu"):
         data["H"], data["W"], batch_size_evs=cfg.batch_size_evs,
         accumulate_evs=bool(cfg.accumulate_evs), acc_max_num_evs=cfg.acc_max_num_evs,
         precompute_evs_poses=bool(cfg.precompute_evs_poses),
-        negative_event_sampling=bool(cfg.negative_event_sampling), device=device)
+        negative_event_sampling=bool(cfg.negative_event_sampling),
+        frames=None if cfg.event_only else images,
+        frame_poses=None if cfg.event_only else data["poses"],
+        num_rays=cfg.num_rays, device=device)
     return train, val

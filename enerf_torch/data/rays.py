@@ -1,8 +1,9 @@
 """Ray generation from camera poses and intrinsics.
 
 Counterpart of enerf_tpu/data/rays.py (reference utils.py:111-216):
-pinhole back-projection with normalized directions, and paired-pose rays
-for events sharing one pixel unprojection.
+pinhole back-projection with normalized directions, rays of random pixels
+of one view, and paired-pose rays for events sharing one pixel
+unprojection.  Error-map-weighted pixel sampling is not ported.
 """
 
 import torch
@@ -25,6 +26,19 @@ def get_rays_full(pose, intrinsics, H, W):
     dirs = pixel_dirs_cam(i.reshape(-1), j.reshape(-1), intrinsics)
     rays_d = dirs @ pose[:3, :3].T
     return pose[:3, 3].expand_as(rays_d), rays_d
+
+
+def get_rays_sampled(pose, intrinsics, H, W, n_rays, generator=None, inds=None):
+    """Rays of n_rays random pixels of one view (reference utils.py:111-174,
+    uniform sampling): dict(rays_o, rays_d [N, 3], inds [N] int64 flat
+    pixel indices).  `inds` are drawn from `generator` unless handed in."""
+    dev = pose.device
+    if inds is None:
+        inds = torch.randint(0, H * W, (n_rays,), device=dev, generator=generator)
+    i = (inds % W).to(torch.float32)
+    j = torch.div(inds, W, rounding_mode="floor").to(torch.float32)
+    rays_d = pixel_dirs_cam(i, j, intrinsics) @ pose[:3, :3].T
+    return {"rays_o": pose[:3, 3].expand_as(rays_d), "rays_d": rays_d, "inds": inds}
 
 
 def get_event_rays(xs, ys, c2w_before, c2w_at, intrinsics):

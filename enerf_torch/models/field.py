@@ -1,27 +1,36 @@
-"""The instant-ngp field: block-grid encoder + sigma MLP + SH + colour MLP.
+"""The instant-ngp field: grid encoder + sigma MLP + SH + colour MLP.
 
 Counterpart of enerf_tpu/models/field.py (reference nerf/network.py).
 Parameters are a flat dict of tensors with the JAX package's names and its
 [in, out] weight layout, so a JAX parameter dict converts 1:1
 (convert.params_from_jax).  `FieldStatic` holds only hyperparameters.
 
-This slice ports the block-grid encoder (the --ff / --tcnn backbone); the
-per-cell hashgrid, the frequency / identity encoders and the background
-net raise NotImplementedError.
+Two grid encoders: the per-cell hash grid (`encoding="hashgrid"`, the
+reference's own, which every published config runs) and the block-packed
+grid (`"blockgrid"`, the --ff / --tcnn backbone).  The frequency / identity
+encoders and the background net raise NotImplementedError.
+
+`EncodeReplay` serves remat_fixed=2 (train/step.py): under
+torch.utils.checkpoint it keeps each encoding of the forward pass and hands
+it back when the backward recomputes the render, so the recompute skips the
+table gather and redoes only the addresses, the MLPs and the compositing.
 """
 
+import contextlib
+import contextvars
 import math
 
 import torch
 
 from enerf_torch.ops.blockgrid import BlockGridMeta, block_encode, init_block_table
+from enerf_torch.ops.hashgrid import HashGridMeta, hash_encode, init_hash_table
 from enerf_torch.ops.scatter_accum import block_encode_fast
 from enerf_torch.ops.sh import sh_encode, sh_output_dim
 from enerf_torch.ops.trunc_exp import trunc_exp
 
 
 class FieldStatic:
-    """Static field hyperparameters (the JAX FieldStatic's, blockgrid only)."""
+    """Static field hyperparameters (the JAX FieldStatic's)."""
 
     def __init__(
         self,
@@ -39,14 +48,15 @@ class FieldStatic:
         level_dim=2,
         base_resolution=16,
         log2_hashmap_size=19,
+        gridtype="hash",
         grid_block=4,
-        encoding="blockgrid",
+        encoding="hashgrid",
         use_fused_head=False,
         fast_table_grad=False,  # table backward by kernel K2 (ops/scatter_accum)
         density_bias=0.0,
         compute_dtype=torch.float32,
     ):
-        if encoding != "blockgrid":
+        if encoding not in ("hashgrid", "blockgrid"):
             raise NotImplementedError(f"enerf_torch field: encoding={encoding!r}")
         if bg_radius > 0:
             raise NotImplementedError("enerf_torch field: background net (bg_radius > 0)")
@@ -67,14 +77,13 @@ class FieldStatic:
         self.density_bias = float(density_bias)
         self.compute_dtype = compute_dtype
         # reference network.py:36: desired_resolution = 2048 * bound
-        self.grid_meta = BlockGridMeta(
-            num_levels=num_levels,
-            level_dim=level_dim,
-            base_resolution=base_resolution,
-            log2_hashmap_size=log2_hashmap_size,
-            desired_resolution=2048 * max(self.bound, 1.0),
-            block=self.grid_block,
-        )
+        grid = dict(num_levels=num_levels, level_dim=level_dim,
+                    base_resolution=base_resolution, log2_hashmap_size=log2_hashmap_size,
+                    desired_resolution=2048 * max(self.bound, 1.0))
+        if encoding == "blockgrid":
+            self.grid_meta = BlockGridMeta(block=self.grid_block, **grid)
+        else:
+            self.grid_meta = HashGridMeta(gridtype=gridtype, **grid)
         self.in_dim = self.grid_meta.output_dim
         self.in_dim_dir = sh_output_dim(sh_degree)
 
@@ -102,7 +111,8 @@ def _init_linear(in_dim, out_dim, generator, device):
 def init_field_params(static, seed=0, device="cpu"):
     """Parameter dict {hash_table, sigma_w*, color_w*} drawn from `seed`."""
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    params = {"hash_table": init_block_table(static.grid_meta, gen, device)}
+    init_table = init_block_table if static.encoding == "blockgrid" else init_hash_table
+    params = {"hash_table": init_table(static.grid_meta, gen, device)}
     for i, (di, do) in enumerate(static.mlp_dims("sigma")):
         params[f"sigma_w{i}"] = _init_linear(di, do, gen, device)
     for i, (di, do) in enumerate(static.mlp_dims("color")):
@@ -129,10 +139,47 @@ def _dir_encode(static, d):
     return enc
 
 
+_REPLAY = contextvars.ContextVar("enerf_torch_encode_replay", default=None)
+
+
+class EncodeReplay:
+    """Keeps the encodings of one checkpointed forward pass and hands them
+    back, in order, when torch.utils.checkpoint recomputes it:
+    `checkpoint(fn, use_reentrant=False, context_fn=EncodeReplay().contexts)`."""
+
+    def __init__(self):
+        self.kept = []
+
+    @contextlib.contextmanager
+    def _use(self, replay):
+        token = _REPLAY.set((self, replay, iter(self.kept) if replay else None))
+        try:
+            yield
+        finally:
+            _REPLAY.reset(token)
+
+    def contexts(self):
+        """(forward context, recompute context) for checkpoint's context_fn."""
+        return self._use(False), self._use(True)
+
+
 def _encode(params, static, x01):
-    if static.fast_table_grad:
-        return block_encode_fast(x01, params["hash_table"], static.grid_meta)
-    return block_encode(x01, params["hash_table"], static.grid_meta)
+    table, meta = params["hash_table"], static.grid_meta
+    if static.encoding == "hashgrid":
+        encoder = hash_encode
+    elif static.fast_table_grad:
+        encoder = block_encode_fast
+    else:
+        encoder = block_encode
+    replay = _REPLAY.get()
+    if replay is None:
+        return encoder(x01, table, meta)
+    stash, replaying, kept = replay
+    if replaying:
+        return encoder(x01, table, meta, out=next(kept))
+    enc = encoder(x01, table, meta)
+    stash.kept.append(enc.detach())
+    return enc
 
 
 def field_density(params, static, x):
@@ -159,7 +206,7 @@ def field_forward(params, static, x, d):
 
 
 def field_forward_fused(params, static, x, d):
-    """The --ff backbone: block-grid encoding feeds the fused head (kernel K1
+    """The --ff backbone: the grid encoding feeds the fused head (kernel K1
     on CUDA tensors).  Requires the 2-layer sigma / 3-layer colour topology."""
     from enerf_torch.ops.fused_mlp import fused_field_head
 

@@ -161,13 +161,17 @@ def _encode_chunk(x, table, meta):
     return torch.einsum("nlcr,nlr->nlc", rows, W.to(rows.dtype))
 
 
-def encode_forward(x01, table, meta, point_chunk):
+def encode_forward(x01, table, meta, point_chunk, out=None):
     """The encoder's forward pass in point chunks -> (enc [N, L*C], the
-    clipped positions [N, 3] f32, the out-of-box mask [N])."""
+    clipped positions [N, 3] f32, the out-of-box mask [N]).  With `out`, a
+    kept encoding of the same positions, the gather is skipped and a copy
+    of `out` is returned."""
     N = x01.shape[0]
     x = x01.to(torch.float32)
     oob = ((x < 0.0) | (x > 1.0)).any(dim=-1)
     x = x.clamp(0.0, 1.0)
+    if out is not None:
+        return out.clone(), x, oob
     out = torch.cat([
         _encode_chunk(x[s:s + point_chunk], table, meta)
         for s in range(0, N, point_chunk)
@@ -178,8 +182,8 @@ def encode_forward(x01, table, meta, point_chunk):
 
 class _BlockEncode(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, table, meta, point_chunk):
-        out, x, oob = encode_forward(x, table, meta, point_chunk)
+    def forward(ctx, x, table, meta, point_chunk, out):
+        out, x, oob = encode_forward(x, table, meta, point_chunk, out)
         ctx.save_for_backward(x, oob)
         ctx.meta, ctx.point_chunk = meta, point_chunk
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
@@ -198,10 +202,11 @@ class _BlockEncode(torch.autograd.Function):
             rid, W = _chunk_rows(x[s:s + chunk], meta)
             contrib = g[s:s + chunk, :, :, None] * W[:, :, None, :]  # [n, L, C, RC]
             grad.index_add_(0, rid.reshape(-1), contrib.reshape(-1, C * RC))
-        return None, grad.to(ctx.table_dtype), None, None
+        return None, grad.to(ctx.table_dtype), None, None, None
 
 
-def block_encode(x01, table, meta, point_chunk=1 << 16):
+def block_encode(x01, table, meta, point_chunk=1 << 16, out=None):
     """Encode [N, 3] positions in [0, 1] -> [N, L*C]; samples outside the
-    unit box encode to 0.  Differentiable in `table`."""
-    return _BlockEncode.apply(x01, table, meta, point_chunk)
+    unit box encode to 0.  Differentiable in `table`.  `out`: a kept
+    encoding of the same positions, returned (copied) without the gather."""
+    return _BlockEncode.apply(x01, table, meta, point_chunk, out)

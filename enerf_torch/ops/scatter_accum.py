@@ -114,10 +114,10 @@ block_table_grad.launches = 0  # kernel launches (CUDA path only)
 
 class _BlockEncodeFast(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x01, table, meta, point_chunk):
+    def forward(ctx, x01, table, meta, point_chunk, out):
         if meta.level_dim != 2:
             raise ValueError("block_encode_fast supports level_dim == 2")
-        out, x, oob = encode_forward(x01, table, meta, point_chunk)
+        out, x, oob = encode_forward(x01, table, meta, point_chunk, out)
         ctx.save_for_backward(x, oob)
         ctx.meta = meta
         ctx.x_dtype, ctx.table_dtype = x01.dtype, table.dtype
@@ -130,10 +130,10 @@ class _BlockEncodeFast(torch.autograd.Function):
         grad = block_table_grad(*pair_inputs(x, g_out, meta, oob), meta.total_rows, meta)
         gx = (torch.zeros(x.shape, dtype=ctx.x_dtype, device=x.device)
               if ctx.needs_input_grad[0] else None)
-        return gx, grad.to(ctx.table_dtype), None, None
+        return gx, grad.to(ctx.table_dtype), None, None, None
 
 
-def block_encode_fast(x01, table, meta, point_chunk=1 << 16):
+def block_encode_fast(x01, table, meta, point_chunk=1 << 16, out=None):
     """`block_encode` whose table backward is K2 (the plain version on the
     CPU); the gradient with respect to the positions is zero."""
-    return _BlockEncodeFast.apply(x01, table, meta, point_chunk)
+    return _BlockEncodeFast.apply(x01, table, meta, point_chunk, out)

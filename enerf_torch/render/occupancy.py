@@ -7,6 +7,9 @@ max(0.95 * grid, new) and thresholds at min(mean density, density_thresh).
 The first 16 updates query every cell, later ones half random cells and
 half occupied cells.
 
+`mark_untrained_grid` sets the cells no training camera sees to -1
+(untrained), which the updates then leave alone.
+
 The full update queries 2M cells per cascade; like the JAX package it runs
 in 64 chunks (16 for the partial update) under no_grad, which bounds the
 gathered block-grid rows to ~0.5 GB per chunk at 16 levels.
@@ -126,3 +129,32 @@ def _finish_update(occ, tmp, density_thresh, decay):
         mean_density=mean_density,
         iter_density=occ.iter_density + 1,
     )
+
+
+@torch.no_grad()
+def mark_untrained_grid(occ, poses, intrinsics, bound):
+    """Mark cells seen by no camera as -1 (reference renderer.py:408-471).
+
+    poses: [B, 4, 4] c2w (numpy or tensor); intrinsics: (fx, fy, cx, cy).
+    The cells go in 64 chunks, as in the JAX package, so the [B, n, 3]
+    camera-frame products stay small.
+    """
+    H = GRID_SIZE
+    dev = occ.density_grid.device
+    fx, fy, cx, cy = intrinsics
+    poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
+    rot_t = poses[:, :3, :3].transpose(1, 2)  # world -> camera: R^T (p - t)
+    trans = poses[:, None, :3, 3]
+    coords = _linear_coords(torch.arange(H ** 3, device=dev))
+    grid = occ.density_grid.clone()
+    for c in range(grid.shape[0]):
+        xyz, half = _cell_centers(coords, c, bound)
+        covered = []
+        for pts in xyz.chunk(64):
+            cam = torch.einsum("bij,bnj->bni", rot_t, pts[None] - trans)  # [B, n, 3]
+            mz = cam[..., 2] > 0
+            mx = cam[..., 0].abs() < cx / fx * cam[..., 2] + half * 2
+            my = cam[..., 1].abs() < cy / fy * cam[..., 2] + half * 2
+            covered.append((mz & mx & my).any(dim=0))
+        grid[c] = torch.where(torch.cat(covered), grid[c], -1.0)
+    return occ._replace(density_grid=grid)

@@ -1,32 +1,41 @@
-"""The event-mode training step on the occupancy-march renderer.
+"""The event-mode training step, on the fixed-step or the march renderer.
 
-Counterpart of enerf_tpu/train/step.py (reference utils.py:482-573): two
+Counterpart of enerf_tpu/train/step.py (reference utils.py:482-636): two
 renders of one pixel ray at the poses of an event and its successor, the
 lin-log difference held to polarity x C, plus the optional opacity and
-distortion regularizers; then Adam + EMA.
+distortion regularizers; with event_only=0 the frame term, an MSE on random
+pixels of a frame against a per-pixel random background, weighted by
+weight_loss_rgb; with negative_event_sampling the no-event pair, whose
+log-intensity change is held below the threshold by a hinge; then Adam +
+EMA.
 
-Random draws (the background shared by the pair, the march jitter of each
-render) come from a torch.Generator, or from `noise` when a test hands in
-the JAX package's draws.  With negative_event_sampling the step adds the
-no-event pair: two renders of a pixel without events at two nearby times,
-whose log-intensity change is held below the threshold by a hinge.  This
-port has the march path only: the fixed-step renderer, the frame term
-(event_only=0) and the CLIP step raise NotImplementedError.
+`use_march` selects the occupancy-march renderer (cuda_ray); otherwise the
+fixed-step renderer draws num_steps uniform samples per ray, optionally
+rematerialized in the backward (`remat_fixed`: 1 recomputes the whole
+render, 2 keeps the encodings and recomputes the rest).  `warm_statics`
+gives the march_warmup phase's statics.
+
+Random draws (the backgrounds, the jitter and PDF draws of each render)
+come from a torch.Generator, or from `noise` when a test hands in the JAX
+package's draws.  The CLIP step is not ported.
 """
 
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from enerf_torch.models.field import EncodeReplay
 from enerf_torch.ops.aabb import aabb_tensor, near_far_from_aabb
 from enerf_torch.render.march import (
     composite_from_march, march_rays, render_rays_march,
 )
+from enerf_torch.render.renderer import render_rays
 from enerf_torch.train import losses
 
 
 class StepStatics(NamedTuple):
-    """Step hyperparameters (the JAX StepStatics' fields this slice uses)."""
+    """Step hyperparameters (the JAX StepStatics' fields the port uses)."""
     field_static: Any
     min_near: float
     density_scale: float
@@ -35,6 +44,10 @@ class StepStatics(NamedTuple):
     use_luma: bool
     linlog: bool
     out_dim_color: int
+    num_steps: int = 128
+    upsample_steps: int = 0
+    weight_loss_rgb: float = 1.0
+    use_march: bool = False
     march_samples: int = 32
     max_steps: int = 1024
     dt_gamma: float = 0.0
@@ -44,6 +57,8 @@ class StepStatics(NamedTuple):
     w_distortion: float = 0.0
     negative_event_sampling: bool = False
     w_no_ev: float = 1.0
+    remat_fixed: int = 0
+    warmup_num_steps: int = 0
 
 
 def distortion_loss(weights, ts, dts):
@@ -55,6 +70,15 @@ def distortion_loss(weights, ts, dts):
     cross = 2.0 * (weights * (ts * w_before - s_before)).sum(-1)
     self_term = (weights * weights * dts).sum(-1) / 3.0
     return (cross + self_term).mean()
+
+
+def warm_statics(ss):
+    """StepStatics of a march_warmup phase: uniform fixed-step sampling
+    (march and share off), the renderer rematerialized, and
+    warmup_num_steps (when set) in place of num_steps."""
+    return ss._replace(use_march=False, share_march=False,
+                       num_steps=int(ss.warmup_num_steps) or ss.num_steps,
+                       remat_fixed=max(int(ss.remat_fixed), 1))
 
 
 def _render_pair_shared(params, ss, o1, d1, o2, d2, bg, jitter, occ):
@@ -76,26 +100,59 @@ def _render_pair_shared(params, ss, o1, d1, o2, d2, bg, jitter, occ):
         for o, d in ((o1, d1), (o2, d2)))
 
 
-def _render(params, ss, rays_o, rays_d, bg, jitter, occ_bitfield):
-    return render_rays_march(
-        params, ss.field_static, occ_bitfield, rays_o, rays_d,
-        num_samples=ss.march_samples, max_steps=ss.max_steps, bg_color=bg,
-        perturb=True, jitter=jitter, min_near=ss.min_near,
-        density_scale=ss.density_scale, dt_gamma=ss.dt_gamma,
-        compact_frac=ss.compact_frac, return_weights=ss.w_distortion > 0.0)
+def _render(params, ss, rays_o, rays_d, bg, jitter, occ_bitfield, u=None):
+    """One training render: the march when ss.use_march and a bitfield is
+    given, else the fixed-step renderer (jitter [N, num_steps], u
+    [N, upsample_steps])."""
+    if ss.use_march and occ_bitfield is not None:
+        return render_rays_march(
+            params, ss.field_static, occ_bitfield, rays_o, rays_d,
+            num_samples=ss.march_samples, max_steps=ss.max_steps, bg_color=bg,
+            perturb=True, jitter=jitter, min_near=ss.min_near,
+            density_scale=ss.density_scale, dt_gamma=ss.dt_gamma,
+            compact_frac=ss.compact_frac, return_weights=ss.w_distortion > 0.0)
+
+    def fixed():
+        return render_rays(
+            params, ss.field_static, rays_o, rays_d, num_steps=ss.num_steps,
+            upsample_steps=ss.upsample_steps, bg_color=bg, perturb=True, jitter=jitter,
+            u=u, train=True, min_near=ss.min_near, density_scale=ss.density_scale)
+
+    if ss.remat_fixed == 2:
+        return checkpoint(fixed, use_reentrant=False, context_fn=EncodeReplay().contexts)
+    if ss.remat_fixed:
+        return checkpoint(fixed, use_reentrant=False)
+    return fixed()
 
 
-def draw_noise(ss, n_rays, generator, device, n_no_ev=0):
-    """The step's random draws: the event pair's bg [1, C] and per-render
-    jitter [N]; with n_no_ev > 0 the no-event pair's bg [1, C] and jitter
-    [n_no_ev] too (the JAX step's k_bg, k1, k2 and k3, k4, k5)."""
+def draw_noise(ss, n_rays, generator, device, n_no_ev=0, n_frames=0):
+    """The step's random draws: the event pair's bg [1, C] and each
+    render's jitter (`jitter1`, `jitter2`: [N] for the march, [N, num_steps]
+    for the fixed-step renderer, plus `u1`, `u2` [N, upsample_steps] with
+    upsampling); with n_no_ev > 0 the no-event pair's (`bg_no_ev`,
+    `jitter_no_ev1/2`, `u_no_ev1/2`); with n_frames > 0 the frame term's
+    per-pixel bg [n_frames, C] and its render's (`bg_frames`,
+    `jitter_frames`, `u_frames`).  The JAX step's keys k_bg, k1, k2; k3,
+    k4, k5; kf."""
     def rand(*shape):
         return torch.rand(*shape, device=device, generator=generator)
 
-    noise = {"bg": rand(1, ss.out_dim_color), "jitter1": rand(n_rays), "jitter2": rand(n_rays)}
+    def render_noise(n, name):
+        if ss.use_march:
+            return {f"jitter{name}": rand(n)}
+        out = {f"jitter{name}": rand(n, ss.num_steps)}
+        if ss.upsample_steps:
+            out[f"u{name}"] = rand(n, ss.upsample_steps)
+        return out
+
+    noise = {"bg": rand(1, ss.out_dim_color)}
+    noise.update(render_noise(n_rays, "1"), **render_noise(n_rays, "2"))
     if n_no_ev:
-        noise.update(bg_no_ev=rand(1, ss.out_dim_color), jitter_no_ev1=rand(n_no_ev),
-                     jitter_no_ev2=rand(n_no_ev))
+        noise["bg_no_ev"] = rand(1, ss.out_dim_color)
+        noise.update(render_noise(n_no_ev, "_no_ev1"), **render_noise(n_no_ev, "_no_ev2"))
+    if n_frames:
+        noise["bg_frames"] = rand(n_frames, ss.out_dim_color)
+        noise.update(render_noise(n_frames, "_frames"))
     return noise
 
 
@@ -103,26 +160,43 @@ def _uses_no_ev(ss, batch):
     return ss.negative_event_sampling and "rays_no_evs_o1" in batch
 
 
-def _render_pair(params, ss, batch, prefix, bg, jitter1, jitter2, occ):
+def _render_pair(params, ss, batch, prefix, bg, noise, suffix, occ):
     """Both renders of a ray pair: one shared march (share_march) or one
-    march each, with its own jitter."""
+    render each, with its own noise."""
     o1, d1, o2, d2 = (batch[f"rays_{prefix}_{k}"] for k in ("o1", "d1", "o2", "d2"))
-    if ss.share_march:
-        return _render_pair_shared(params, ss, o1, d1, o2, d2, bg, jitter1, occ)
-    return (_render(params, ss, o1, d1, bg, jitter1, occ),
-            _render(params, ss, o2, d2, bg, jitter2, occ))
+    if ss.use_march and ss.share_march and occ is not None:
+        return _render_pair_shared(params, ss, o1, d1, o2, d2, bg, noise[f"jitter{suffix}1"],
+                                   occ)
+    return tuple(_render(params, ss, o, d, bg, noise[f"jitter{suffix}{i}"], occ,
+                         noise.get(f"u{suffix}{i}"))
+                 for i, (o, d) in ((1, (o1, d1)), (2, (o2, d2))))
+
+
+def frames_loss_fn(params, ss, batch, noise, occ=None):
+    """MSE frame loss against a per-pixel random background (utils.py:586-604);
+    batch: rays_o, rays_d [N, 3], images [N, C] or [N, C+1] (with alpha)."""
+    images = batch["images"]
+    C = ss.out_dim_color
+    bg = noise["bg_frames"]
+    if images.shape[-1] == C + 1:  # alpha compositing against the random bg
+        gt = images[..., :C] * images[..., C:] + bg * (1.0 - images[..., C:])
+    else:
+        gt = images
+    out = _render(params, ss, batch["rays_o"], batch["rays_d"], bg, noise["jitter_frames"],
+                  occ, noise.get("u_frames"))
+    per_ray = ((out["image"] - gt) ** 2).mean(-1)
+    loss = per_ray.mean()
+    return loss, {"loss_frames": loss, "per_ray_loss": per_ray}
 
 
 def event_loss_fn(params, ss, batch, noise, occ):
     """Event photometric loss on paired renders (utils.py:482-573);
-    occ: the [CAS, H^3] occupancy bitfield the renders march through."""
-    if not ss.event_only:
-        raise NotImplementedError("enerf_torch: event_only=0 (frame term)")
+    occ: the [CAS, H^3] occupancy bitfield the march renders go through
+    (None on the fixed-step path)."""
     N = batch["rays_evs_o1"].shape[0]
     # one random bg shared by both renders of the pair (utils.py:487)
     bg = noise["bg"].expand(N, ss.out_dim_color)
-    out1, out2 = _render_pair(params, ss, batch, "evs", bg, noise["jitter1"],
-                              noise["jitter2"], occ)
+    out1, out2 = _render_pair(params, ss, batch, "evs", bg, noise, "", occ)
     ll1 = losses.log_intensity(out1["image"], ss.use_luma, ss.linlog)
     ll2 = losses.log_intensity(out2["image"], ss.use_luma, ss.linlog)
     delta = ll2 - ll1
@@ -135,7 +209,7 @@ def event_loss_fn(params, ss, batch, noise, occ):
                losses.estimate_implicit_C(pol, delta.detach()).items())
     aux["ws_mean"] = out1["weights_sum"].detach().float().mean()
 
-    if ss.w_distortion > 0.0:
+    if ss.w_distortion > 0.0 and "weights" in out1:  # march renders only
         l_dist = ss.w_distortion * 0.5 * (
             distortion_loss(out1["weights"], out1["ts"], out1["dts"])
             + distortion_loss(out2["weights"], out2["ts"], out2["dts"]))
@@ -146,11 +220,14 @@ def event_loss_fn(params, ss, batch, noise, occ):
         l_op = ss.w_opacity * (-torch.log(ws * ws + (1.0 - ws) * (1.0 - ws))).mean()
         loss = loss + l_op
         aux["loss_opacity"] = l_op
+    if not ss.event_only:
+        lf, _ = frames_loss_fn(params, ss, batch, noise, occ)
+        loss = loss + ss.weight_loss_rgb * lf
+        aux["loss_frames"] = lf
     if _uses_no_ev(ss, batch):
         M = batch["rays_no_evs_o1"].shape[0]
         bg2 = noise["bg_no_ev"].expand(M, ss.out_dim_color)
-        no1, no2 = _render_pair(params, ss, batch, "no_evs", bg2, noise["jitter_no_ev1"],
-                                noise["jitter_no_ev2"], occ)
+        no1, no2 = _render_pair(params, ss, batch, "no_evs", bg2, noise, "_no_ev", occ)
         nll1 = losses.log_intensity(no1["image"], ss.use_luma, True)
         nll2 = losses.log_intensity(no2["image"], ss.use_luma, True)
         lne = losses.no_event_loss(nll2 - nll1, ss.C_thres, ss.w_no_ev)
@@ -165,8 +242,9 @@ def train_step_events(state, batch, ss, occ, noise=None, generator=None):
     until the next step."""
     if noise is None:
         n_no_ev = batch["rays_no_evs_o1"].shape[0] if _uses_no_ev(ss, batch) else 0
+        n_frames = 0 if ss.event_only else batch["rays_o"].shape[0]
         noise = draw_noise(ss, batch["rays_evs_o1"].shape[0], generator,
-                           batch["rays_evs_o1"].device, n_no_ev)
+                           batch["rays_evs_o1"].device, n_no_ev, n_frames)
     state.zero_grad()
     loss, aux = event_loss_fn(state.params, ss, batch, noise, occ)
     loss.backward()

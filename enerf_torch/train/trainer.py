@@ -1,17 +1,23 @@
 """Training orchestration — the port's Trainer.
 
 Counterpart of enerf_tpu/train/trainer.py (reference nerf/utils.py:289-1416):
-  - the constructor (the --ff / -O backbone selection) and resume from a
-    checkpoint ('latest' | 'best' | a path);
-  - the per-step loop with the occupancy update every 16 steps *before*
-    the step, the `[train]` log line and the no-event epoch gate;
+  - the constructor (the backbone selection: the hash grid and unfused
+    MLPs by default, the block grid with --ff / --tcnn, the fused head with
+    --ff -O; the march with cuda_ray) and resume from a checkpoint
+    ('latest' | 'best' | a path);
+  - on the march path, `mark_untrained_grid` from the provider's frame
+    poses at the start of `train`, and the occupancy update every 16 steps
+    *before* the step;
+  - the per-step loop, with the fixed-step renderer for the first
+    march_warmup steps, the `[train]` log line and the no-event epoch gate;
   - the per-epoch tail: epoch loss stats, a rotating checkpoint every
     ckpt_interval epochs, evaluation every eval_interval epochs, the
     best-by-metric checkpoint with the EMA weights, the eval_log JSON line
     and the divergence guard;
   - `evaluate` (PSNR, SSIM and, for event-only training, the affine (a, b)
     log-intensity correction solved over all val images), `test`, and
-    `render_view` through the alive-ray inference renderer.
+    `render_view` through the alive-ray inference renderer (march) or the
+    staged fixed-step renderer.
 One step runs per dispatch (the JAX package's fused multi-step window,
 train/chunk.py, has no counterpart).  Images are written as PNG by the
 port's own writer (no OpenCV).  Not ported: LPIPS (reported as None),
@@ -31,12 +37,13 @@ from enerf_torch.config import TPU_ONLY, check_supported
 from enerf_torch.data.rays import get_rays_full
 from enerf_torch.models.field import FieldStatic, init_field_params
 from enerf_torch.render.march import pack_bitfield, render_rays_infer
-from enerf_torch.render.occupancy import init_occupancy, update_occupancy
+from enerf_torch.render.occupancy import init_occupancy, mark_untrained_grid, update_occupancy
+from enerf_torch.render.renderer import render_rays_staged
 from enerf_torch.train import metrics as M
 from enerf_torch.train.checkpoints import CheckpointManager, load_checkpoint
 from enerf_torch.train.losses import rgb_to_luma
 from enerf_torch.train.state import TrainState
-from enerf_torch.train.step import StepStatics, train_step_events
+from enerf_torch.train.step import StepStatics, train_step_events, warm_statics
 from enerf_torch.utils.png import write_png
 
 
@@ -50,14 +57,16 @@ class Trainer:
         self.cfg = check_supported(cfg)
         # reference main_nerf.py:46-52: --ff/--tcnn force half precision;
         # here they select the block-packed encoder + bf16 compute, and
-        # --ff with the march (-O) selects the fused head (kernel K1)
+        # --ff with the march (-O) selects the fused head (kernel K1);
+        # otherwise the reference's hash grid and unfused MLPs
         use_fast = bool(cfg.ff or cfg.tcnn)
         self.static = FieldStatic(
             bound=cfg.bound,
             out_dim_color=cfg.out_dim_color,
             disable_view_direction=bool(cfg.disable_view_direction),
             bg_radius=cfg.bg_radius,
-            encoding="blockgrid" if cfg.encoding == "auto" else cfg.encoding,
+            encoding=(("blockgrid" if use_fast else "hashgrid")
+                      if cfg.encoding == "auto" else cfg.encoding),
             use_fused_head=bool(cfg.ff) and bool(cfg.cuda_ray),
             compute_dtype=torch.bfloat16 if (cfg.fp16 or use_fast) else torch.float32,
             grid_block=cfg.grid_block,
@@ -77,6 +86,10 @@ class Trainer:
             use_luma=bool(cfg.use_luma),
             linlog=bool(cfg.linlog),
             out_dim_color=cfg.out_dim_color,
+            num_steps=cfg.num_steps,
+            upsample_steps=cfg.upsample_steps,
+            weight_loss_rgb=cfg.weight_loss_rgb,
+            use_march=bool(cfg.cuda_ray),
             march_samples=cfg.march_samples,
             max_steps=cfg.max_steps,
             dt_gamma=cfg.dt_gamma,
@@ -86,10 +99,13 @@ class Trainer:
             w_distortion=cfg.w_distortion,
             negative_event_sampling=bool(cfg.negative_event_sampling),
             w_no_ev=cfg.w_no_ev,
+            remat_fixed=cfg.remat_fixed,
+            warmup_num_steps=cfg.warmup_num_steps,
         )
         params = init_field_params(self.static, cfg.seed, self.device)
         self.state = TrainState(params, cfg.lr, cfg.iters)
-        self.occupancy = init_occupancy(cfg.bound, self.device)
+        # the occupancy grid exists on the march path only (cuda_ray)
+        self.occupancy = init_occupancy(cfg.bound, self.device) if cfg.cuda_ray else None
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
 
         self.workspace = workspace or os.path.join(cfg.outdir, cfg.expweek, cfg.expname)
@@ -138,6 +154,11 @@ class Trainer:
         global_step = self.state.step
         steps_per_epoch = getattr(provider, "steps_per_epoch", 100)
         t_start, start_step = time.time(), global_step
+        if self.occupancy is not None and hasattr(provider, "train_poses"):
+            self.occupancy = mark_untrained_grid(self.occupancy, provider.train_poses,
+                                                 provider.intrinsics, cfg.bound)
+            frac = float((self.occupancy.density_grid == -1.0).float().mean())
+            self.log(f"[occupancy] marked untrained cells: {frac:.4f} of the grid")
 
         def log_aux(aux, step):
             aux = {k: float(v) for k, v in aux.items()}
@@ -166,15 +187,16 @@ class Trainer:
             t_steps = self._clock()
             for _ in range(steps_per_epoch):
                 freeze = cfg.occ_freeze_after > 0 and global_step >= cfg.occ_freeze_after
-                if global_step % 16 == 0 and not freeze:
+                if self.occupancy is not None and global_step % 16 == 0 and not freeze:
                     self.occupancy = update_occupancy(
                         self.state.params, self.static, self.occupancy,
                         self.generator, density_scale=cfg.density_scale,
                         density_thresh=cfg.density_thresh)
                 batch = provider.train_step_batch(self.generator)
-                aux = train_step_events(self.state, batch, self.ss,
-                                        self.occupancy.occ_bitfield,
-                                        generator=self.generator)
+                # the march_warmup phase: uniform fixed-step renders first
+                ss = warm_statics(self.ss) if global_step < cfg.march_warmup else self.ss
+                occ = self.occupancy.occ_bitfield if self.occupancy is not None else None
+                aux = train_step_events(self.state, batch, ss, occ, generator=self.generator)
                 global_step += 1
                 if global_step % cfg.log_every == 0:
                     epoch_losses.append(log_aux(aux, global_step))
@@ -242,11 +264,22 @@ class Trainer:
     @torch.no_grad()
     def render_view(self, pose, intrinsics, H, W):
         """Full-image render with the EMA weights -> (image [H, W, C],
-        depth [H, W]) numpy, through the alive-ray inference renderer in
-        chunks of max_ray_batch rays."""
+        depth [H, W]) numpy, in chunks of max_ray_batch rays: through the
+        alive-ray inference renderer on the march path, else the fixed-step
+        renderer without jitter."""
         params = self.state.ema_params
         pose = torch.as_tensor(np.asarray(pose), dtype=torch.float32, device=self.device)
         ro, rd = get_rays_full(pose, intrinsics, H, W)
+        C = self.static.out_dim_color
+        if self.occupancy is None:
+            cfg = self.cfg
+            out = render_rays_staged(
+                params, self.static, ro, rd, max_ray_batch=cfg.max_ray_batch,
+                num_steps=cfg.num_steps, upsample_steps=cfg.upsample_steps, bg_color=1.0,
+                perturb=False, train=False, min_near=cfg.min_near,
+                density_scale=cfg.density_scale)
+            return (out["image"].reshape(H, W, C).cpu().numpy(),
+                    out["depth"].reshape(H, W).cpu().numpy())
         packed = pack_bitfield(self.occupancy.occ_bitfield)
         chunk = min(int(self.cfg.max_ray_batch), ro.shape[0])
         images, depths = [], []
@@ -264,7 +297,6 @@ class Trainer:
             n = chunk - pad
             images.append(o["image"][:n])
             depths.append(o["depth"][:n])
-        C = self.static.out_dim_color
         img = torch.cat(images).reshape(H, W, C).cpu().numpy()
         return img, torch.cat(depths).reshape(H, W).cpu().numpy()
 
@@ -275,11 +307,29 @@ class Trainer:
             img = rgb_to_luma(torch.as_tensor(img)).numpy()
         return np.log(255.0 * img + 1e-3)
 
+    def affine_corrected(self, preds, gts):
+        """The event-only evaluation's correction (utils.py:1170-1265): one
+        affine map (a, b) of log intensity fitted over all the images, then
+        PSNR and SSIM of the corrected predictions on a 0-255 scale.
+        Returns dict(affine_a, affine_b, psnr_corrected, ssim_corrected)."""
+        p_logs = np.stack([self._log_intensity(p) for p in preds])
+        g_logs = np.stack([self._log_intensity(g) for g in gts])
+        a, b = M.solve_normal_equations(p_logs, g_logs)
+        psnrs_c, ssims_c = [], []
+        for j in range(len(preds)):
+            pred_c = np.exp(p_logs[j] * a + b)
+            gt255 = np.exp(g_logs[j])
+            psnrs_c.append(M.psnr(pred_c, gt255, max_val=255.0))
+            ssims_c.append(M.ssim(pred_c[..., 0], gt255[..., 0], data_range=255.0))
+        return {"affine_a": a, "affine_b": b, "psnr_corrected": float(np.mean(psnrs_c)),
+                "ssim_corrected": float(np.mean(ssims_c))}
+
     def evaluate(self, provider, save=True):
         """Reference evaluate_one_epoch, with the event-only (a, b) correction."""
-        occ_frac = float(self.occupancy.occ_bitfield.float().mean())
-        self.log(f"[occ] occupied fraction {occ_frac:.4f} "
-                 f"mean_density {float(self.occupancy.mean_density):.5f}")
+        if self.occupancy is not None:
+            occ_frac = float(self.occupancy.occ_bitfield.float().mean())
+            self.log(f"[occ] occupied fraction {occ_frac:.4f} "
+                     f"mean_density {float(self.occupancy.mean_density):.5f}")
         views = provider.val_views()
         preds, gts, depths = [], [], []
         for v in views:
@@ -295,19 +345,10 @@ class Trainer:
             results["ssim"] = float(np.mean([M.ssim(preds[i], gts[i]) for i in have_gt]))
             results["lpips_alex"] = results["lpips_vgg"] = None  # not ported
         if self.cfg.event_only and have_gt:
-            # affine log correction over ALL val images (utils.py:1170-1265)
-            p_logs = np.stack([self._log_intensity(preds[i]) for i in have_gt])
-            g_logs = np.stack([self._log_intensity(gts[i]) for i in have_gt])
-            a, b = M.solve_normal_equations(p_logs, g_logs)
-            results["affine_a"], results["affine_b"] = a, b
-            psnrs_c, ssims_c = [], []
-            for j in range(len(have_gt)):
-                pred_c = np.exp(p_logs[j] * a + b)
-                gt255 = np.exp(g_logs[j])
-                psnrs_c.append(M.psnr(pred_c, gt255, max_val=255.0))
-                ssims_c.append(M.ssim(pred_c[..., 0], gt255[..., 0], data_range=255.0))
-            results["psnr_corrected"] = float(np.mean(psnrs_c))
-            results["ssim_corrected"] = float(np.mean(ssims_c))
+            # affine log correction over ALL val images; with the frame
+            # term the frames fix the scale, and JAX corrects nothing
+            results.update(self.affine_corrected([preds[i] for i in have_gt],
+                                                 [gts[i] for i in have_gt]))
 
         if save:
             vdir = os.path.join(self.workspace, "validation")

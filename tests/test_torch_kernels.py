@@ -12,7 +12,7 @@ import torch
 
 import torch_parity  # noqa: F401  (one intra-op thread per xdist worker)
 
-from enerf_torch.ops import fused_mlp, scatter_accum
+from enerf_torch.ops import fused_mlp, group_gather, scatter_accum
 from enerf_torch.ops.blockgrid import BlockGridMeta
 
 
@@ -72,3 +72,21 @@ def test_table_grad_kernel_matches_twin_on_card(block):
     assert (got[mag == 0] == 0).all()  # cells with no addend stay exactly zero
     twin = scatter_accum.block_table_grad_reference(*pairs, meta.total_rows, meta)
     assert ((twin.double() - ref64).abs() <= bound).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,groups,windows", [(1024, 128, 5000, 4), (97824, 250, 70_001, 8),
+                                                   (64, 1, 33, 16), (80, 3, 1, 1)])
+def test_group_gather_kernel_matches_twin_on_card(rows, d, groups, windows):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3 has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    table = torch.randn(rows, d, device="cuda", generator=g)
+    gidx = torch.randint(0, rows // 8, (groups,), device="cuda", generator=g,
+                         dtype=torch.int32)
+    before = group_gather.group_gather.launches
+    got = group_gather.group_gather(gidx, table, windows)
+    torch.cuda.synchronize()
+    assert group_gather.group_gather.launches == before + 1
+    # a copy: bit-exact
+    assert torch.equal(got, group_gather.group_gather_reference(gidx, table))

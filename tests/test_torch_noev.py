@@ -129,7 +129,7 @@ def test_train_step_with_no_event_pair_matches_jax(share, monkeypatch):
                   negative_event_sampling=True, w_no_ev=0.7)
     ss_j = jstep.StepStatics(field_static=sj, num_steps=64, upsample_steps=0,
                              weight_loss_rgb=1.0, use_march=True, **common)
-    ss_t = tstep.StepStatics(field_static=st, **common)
+    ss_t = tstep.StepStatics(field_static=st, use_march=True, **common)
     N, Mn = 96, 48
     batch = dict(zip(("rays_evs_o1", "rays_evs_d1", "rays_evs_o2", "rays_evs_d2"),
                      _pair(rng, N)))

@@ -33,7 +33,10 @@ def test_package_imports_no_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'enerf_tpu'))\n"
-        "assert len(mods) >= 19, mods\n"
+        "assert len(mods) >= 26, mods\n"
+        "assert {'enerf_torch.ops.hashgrid', 'enerf_torch.ops.composite',\n"
+        "        'enerf_torch.ops.group_gather', 'enerf_torch.render.renderer',\n"
+        "        'enerf_torch.tools.bench_gather'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -44,6 +47,8 @@ def test_package_imports_no_jax():
 
 def test_entry_points_want_the_card():
     from enerf_torch.backend import resolve_device
+    from enerf_torch.data.provider import make_providers
+    from enerf_torch.tools import bench_gather
     from enerf_torch.train.trainer import Trainer
     assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
@@ -51,6 +56,10 @@ def test_entry_points_want_the_card():
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(_cfg())
+    with pytest.raises(RuntimeError, match="CUDA"):  # device=None is the card
+        make_providers(_cfg())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_gather.main(["--rows", "64", "--m", "64"])
     with pytest.raises(RuntimeError):
         resolve_device(None)
 
@@ -59,13 +68,19 @@ def test_config_parses_tpu_flags_and_refuses_missing_paths():
     cfg = _cfg("--fuse_steps", "4", "--segsum_grad", "1", "--mesh_shape", "2")
     assert cfg.fp16 and cfg.cuda_ray and cfg.preload and cfg.ff
     check_supported(cfg)  # TPU-only options are accepted (and ignored)
-    # the no-event pair and the device slerp are ported
+    # the no-event pair, the device slerp, the frame term and march_warmup
+    # are ported
     check_supported(_cfg("--negative_event_sampling", "1", "--precompute_evs_poses", "0"))
-    for extra in (["--march_warmup", "10"], ["--event_only", "0"], ["--bg_radius", "2"]):
+    check_supported(_cfg("--march_warmup", "10", "--event_only", "0"))
+    for extra in (["--bg_radius", "2"], ["--encoding", "frequency"],
+                  ["--events", "0", "--event_only", "0"]):
         with pytest.raises(NotImplementedError):
             check_supported(_cfg(*extra))
-    cfg = build_config(["--config", os.path.join(REPO, "configs", "synthetic_demo.txt"),
-                        "--ff", "-O"])
+    demo = os.path.join(REPO, "configs", "synthetic_demo.txt")
+    check_supported(build_config(["--config", demo, "--ff", "-O"]))
+    # the published configs' path: hash grid, fixed-step renderer, frames
+    cfg = build_config(["--config", demo, "--event_only", "0"])
+    assert not (cfg.ff or cfg.tcnn or cfg.cuda_ray) and cfg.encoding == "auto"
     check_supported(cfg)
 
 

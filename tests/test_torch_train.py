@@ -153,7 +153,7 @@ def _step_setup(share):
     ss_j = jstep.StepStatics(field_static=sj, num_steps=64, upsample_steps=0,
                              weight_loss_rgb=1.0, negative_event_sampling=False,
                              w_no_ev=1.0, use_march=True, **common)
-    ss_t = tstep.StepStatics(field_static=st, **common)
+    ss_t = tstep.StepStatics(field_static=st, use_march=True, **common)
     N = 96
     o1 = unit_dirs(rng, N) * 2.5
     tgt = rng.uniform(-0.4, 0.4, (N, 3)).astype(np.float32)
