@@ -14,6 +14,10 @@ encoders and the background net raise NotImplementedError.
 torch.utils.checkpoint it keeps each encoding of the forward pass and hands
 it back when the backward recomputes the render, so the recompute skips the
 table gather and redoes only the addresses, the MLPs and the compositing.
+The replay goes through each encoder's own autograd Function (its `out=`
+argument): a non-reentrant checkpoint runs the backward through the nodes
+of the first forward and refills their saved tensors, by count and order,
+from the recompute, so the recompute must save what the encoder saves.
 """
 
 import contextlib
