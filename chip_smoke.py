@@ -6,12 +6,15 @@
 Phases (one line each; any failure exits non-zero before the result lines):
   1. device: the card's name and power limit (nvidia-smi), CUDA required;
   2. build: every csrc/*.cu kernel, one nvcc each, started together, with
-     the -Xptxas -v register / shared-memory / spill lines;
+     the -Xptxas -v register / shared-memory / spill lines, and the count of
+     tensor-core instructions in K1's SASS and of bulk copies in K3's
+     (cuobjdump; K1's bf16 kernel without one fails);
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes, with the stated tolerances; kernel, plain, library and
-     bound times (K1 fused_field_head; K2 block_table_grad at block 4 and 3;
-     K3 group_gather, bit-exact, at the gather benchmark's default shape and
-     at the block-grid table's);
+     bound times and the share of the bound (K1 fused_field_head, timed
+     over 6 input sets that together exceed L2; K2 block_table_grad at
+     block 4 and 3; K3 group_gather, bit-exact, at the gather benchmark's
+     default shape and at the block-grid table's);
   3b. gather benchmark: enerf_torch.tools.bench_gather at its defaults and
      with --rows 97824 --d 250, every variant's rows/s and GB/s (the path
      that runs K3);
@@ -47,6 +50,7 @@ Then a `{"kernels": [...]}` line, the card line, and last the result line
 """
 
 import glob
+import itertools
 import json
 import math
 import os
@@ -83,7 +87,8 @@ def card_line():
 
 
 def time_ms(fn, iters=30, warmup=3):
-    """Mean device time of one call, from CUDA events around `iters` calls."""
+    """Mean device time of one call, from CUDA events around `iters` calls
+    (a caller whose inputs must not be L2-hot rotates them inside `fn`)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -98,6 +103,35 @@ def time_ms(fn, iters=30, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=30, replays=3):
+    """Mean device time of one call with no host in the way: `iters` calls
+    captured in one CUDA graph (after 3 calls outside it), replayed
+    `replays` times between CUDA events.  For kernels shorter than the
+    host's time to enqueue them, where time_ms would time the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def phase_build():
     from enerf_torch.ops import cuda_build
     names = sorted(os.path.splitext(os.path.basename(p))[0]
@@ -108,31 +142,74 @@ def phase_build():
     for name in names:
         cuda_build.load_library(name)
         ptx = [ln.strip() for ln in cuda_build.BUILD_LOGS.get(name, "").splitlines()
-               if "registers" in ln or "spill" in ln or "smem" in ln]
+               if any(k in ln for k in ("entry function", "registers", "spill", "smem"))]
         for ln in ptx:
             print(f"[build] {name}: {ln}")
     print(f"[build] ok: {names} in {time.time() - t0:.1f} s")
+    sass_counts()
     return names
 
 
-def head_inputs(B, dtype, gen):
-    """K1's operands at the main path's widths: enc [B, 32] (16 levels x 2),
-    SH-4 direction encodings [B, 16], and weights drawn like
-    init_field_params (U(+-1/sqrt(fan_in)), [in, out] layout)."""
+def sass_functions(name):
+    """{kernel symbol: [SASS instruction lines]} of the built csrc/<name>.cu,
+    from cuobjdump -sass; raises if the toolkit has no cuobjdump."""
+    import shutil
+    from enerf_torch.ops import cuda_build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise RuntimeError("cuobjdump is not on this machine: the SASS of the kernels "
+                           "cannot be counted")
+    out = subprocess.run([tool, "-sass", str(cuda_build.compile_library(name))],
+                         capture_output=True, text=True, timeout=300, check=True).stdout
+    funcs, cur = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            cur = funcs.setdefault(ln.split("Function :")[1].strip(), [])
+        elif cur is not None and ln.strip().startswith("/*") and "*/" in ln:
+            cur.append(ln.split("*/", 1)[1].strip())
+    return funcs
+
+
+def sass_counts():
+    """Tensor-core instructions (HMMA / HGMMA) in K1's SASS and bulk copies
+    (UBLKCP) in K3's; K1's bf16 kernel must have tensor-core instructions
+    and K3 (the TMA design) bulk copies."""
+    def count(funcs, key, ops):
+        return {f: sum(any(ins.startswith(op) for op in ops) for ins in body)
+                for f, body in funcs.items() if key in f}
+
+    k1 = count(sass_functions("fused_field_head"), "head_", ("HMMA", "HGMMA"))
+    k3 = count(sass_functions("group_gather"), "group_gather", ("UBLKCP",))
+    bf16 = sum(c for f, c in k1.items() if "bf16" in f)
+    print(f"[build] SASS: fused_field_head tensor-core instructions (HMMA/HGMMA) per kernel "
+          f"{k1}; group_gather bulk copies (UBLKCP) per kernel {k3} (design kept: TMA bulk "
+          f"copies through a shared-memory ring with L2 evict_last / evict_first policies)")
+    if not bf16:
+        raise AssertionError("K1's bf16 kernel has no tensor-core instruction in its SASS")
+    if not sum(k3.values()):
+        raise AssertionError("K3 has no bulk-copy instruction in its SASS")
+
+
+def head_inputs(B, dtype, gen, sets=1):
+    """K1's operands at the main path's widths: `sets` pairs of enc [B, 32]
+    (16 levels x 2) and SH-4 direction encodings [B, 16], then weights
+    drawn like init_field_params (U(+-1/sqrt(fan_in)), [in, out] layout)."""
     import torch
     from enerf_torch.ops.sh import sh_encode
 
     dev = "cuda"
-    enc = (torch.rand(B, 32, device=dev, generator=gen) * 2 - 1) * 0.5
-    d = torch.randn(B, 3, device=dev, generator=gen)
-    denc = sh_encode(d / d.norm(dim=-1, keepdim=True), 4)
+    xs = []
+    for _ in range(sets):
+        enc = (torch.rand(B, 32, device=dev, generator=gen) * 2 - 1) * 0.5
+        d = torch.randn(B, 3, device=dev, generator=gen)
+        xs.append((enc.to(dtype), sh_encode(d / d.norm(dim=-1, keepdim=True), 4).to(dtype)))
 
     def w(i, o):
         b = 1.0 / math.sqrt(i)
         return (torch.rand(i, o, device=dev, generator=gen) * 2 - 1) * b
 
     ws = [w(32, 64), w(64, 16), w(31, 64), w(64, 64), w(64, 1)]
-    return [a.to(dtype) for a in [enc, denc] + ws]
+    return xs, [a.to(dtype) for a in ws]
 
 
 def bound_of(B, dtype_name, E=32, D=16, G=15, HS=64, HC=64, C=1):
@@ -147,7 +224,16 @@ def bound_of(B, dtype_name, E=32, D=16, G=15, HS=64, HC=64, C=1):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
+def rotating(fn, sets):
+    """fn over the input sets in turn, one set per call."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
 def phase_kernels():
+    """K1 against its plain version at the main path's B (bf16, the --ff
+    path's type, and f32).  The timed launches rotate over 6 input sets
+    (82 MB in bf16), so no launch reads inputs left in the 50 MB L2."""
     import torch
     from enerf_torch.ops import fused_mlp
 
@@ -156,10 +242,10 @@ def phase_kernels():
     results = {}
     for name in ("float32", "bfloat16"):
         dt = getattr(torch, name)
-        args = head_inputs(B, dt, gen)
+        xs, ws = head_inputs(B, dt, gen, sets=6)
         with torch.no_grad():
-            s_k, c_k = fused_mlp.launch_kernel(*args)
-            s_p, c_p = fused_mlp.head_reference(*args)
+            s_k, c_k = fused_mlp.launch_kernel(*xs[0], *ws)
+            s_p, c_p = fused_mlp.head_reference(*xs[0], *ws)
         torch.cuda.synchronize()
         for a in (s_k, c_k):
             if not torch.isfinite(a).all():
@@ -168,22 +254,55 @@ def phase_kernels():
         rgb_abs = float((c_k - c_p).abs().max())
         rgb_rel = float(((c_k - c_p).abs() / c_p.abs().clamp(min=1e-30)).max())
         max_abs = max(float((s_k - s_p).abs().max()), rgb_abs)
+        differ = float(torch.cat([s_k != s_p, (c_k != c_p).reshape(-1)]).float().mean())
         tol = TOL[name]
         ok = sig_rel <= tol["sigma_rel"] and (
             rgb_rel <= tol["rgb_rel"] if "rgb_rel" in tol else rgb_abs <= tol["rgb_abs"])
         with torch.no_grad():
-            ms = time_ms(lambda: fused_mlp.launch_kernel(*args))
-            plain_ms = time_ms(lambda: fused_mlp.head_reference(*args))
+            # device times from CUDA graphs: the bf16 kernel is shorter than
+            # the host's time to enqueue a call
+            ms = graph_ms(rotating(lambda e, d: fused_mlp.launch_kernel(e, d, *ws), xs))
+            plain_ms = graph_ms(rotating(lambda e, d: fused_mlp.head_reference(e, d, *ws), xs))
+            host_ms = time_ms(rotating(lambda e, d: fused_mlp.launch_kernel(e, d, *ws), xs))
+            extra = dict(host_ms=host_ms)
+            timing = f"; one call enqueued from the host {host_ms:.4f} ms"
+            if name == "bfloat16":
+                # the kernel alone on weights packed once; the packing alone
+                pack = fused_mlp.pack_head(*ws)
+                kernel_ms = graph_ms(rotating(
+                    lambda e, d: fused_mlp.launch_packed(e, d, pack), xs))
+                pack_ms = graph_ms(lambda: fused_mlp.pack_head(*ws))
+                extra.update(kernel_ms=kernel_ms, pack_ms=pack_ms)
+                timing = (f" (the kernel alone {kernel_ms:.4f} ms, pack_head {pack_ms:.4f} ms)"
+                          + timing)
         bound_ms, bound_by, nbytes, flops = bound_of(B, name)
+        share = bound_ms / ms
         print(f"[kernel] fused_field_head {name} B={B}: sigma rel err {sig_rel:.3e}, "
-              f"rgb abs err {rgb_abs:.3e} rel {rgb_rel:.3e} (tol {tol}) -> "
-              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"rgb abs err {rgb_abs:.3e} rel {rgb_rel:.3e}, max abs err {max_abs:.3e}, "
+              f"outputs that differ {differ:.4%} (tol {tol}) -> "
+              f"{'ok' if ok else 'FAIL'}; launch_kernel {ms:.4f} ms{timing}; plain "
+              f"{plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
-              f"{flops / 1e9:.3f} GFLOP)")
+              f"{flops / 1e9:.3f} GFLOP), share of bound {share:.1%}"
+              + (f" ({bound_ms / extra['kernel_ms']:.1%} for the kernel alone)"
+                 if "kernel_ms" in extra else "")
+              + "; device times from CUDA graphs, 6 rotating input sets")
         if not ok:
             raise AssertionError(f"K1 {name} disagrees with its plain version")
         results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
+                             bound_ms=bound_ms, bound_by=bound_by, share_of_bound=share,
+                             differ_share=differ, **extra)
+        del xs
+    # how the bf16 kernel's time grows with B (a fixed cost and a rate)
+    sweep = []
+    for b in (B // 4, B * 4):
+        xs, ws = head_inputs(b, torch.bfloat16, gen, sets=max(2, 6 * B // b))
+        pack = fused_mlp.pack_head(*ws)
+        with torch.no_grad():
+            b_ms = graph_ms(rotating(lambda e, d: fused_mlp.launch_packed(e, d, pack), xs))
+        sweep.append(f"B={b} {b_ms:.4f} ms (bound {bound_of(b, 'bfloat16')[0]:.4f} ms)")
+        del xs
+    print("[kernel] fused_field_head bfloat16, the kernel alone by batch: " + "; ".join(sweep))
     return results
 
 
@@ -288,11 +407,12 @@ def phase_k2_kernel():
               f"exactly 0 where sum|g W| is 0 -> "
               f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-              f"({nbytes / 1e6:.1f} MB)")
+              f"({nbytes / 1e6:.1f} MB), share of bound {bound_ms / ms:.1%}")
         if not ok:
             raise AssertionError(f"K2 blk{block} is outside its bound of the float64 twin")
         results[block] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                              share_of_bound=bound_ms / ms)
     return results
 
 
@@ -333,12 +453,31 @@ def phase_k3_kernel():
               f"from [{T}, {d}]: "
               f"bit-exact {exact} (max |diff| {max_abs:.1e}) -> {'ok' if exact else 'FAIL'}; "
               f"kernel {ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s moved), plain = library "
-              f"(index_select) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-              f"({nbytes / 1e9:.3f} GB)")
+              f"(index_select) {plain_ms:.4f} ms, K3 / index_select {ms / plain_ms:.4f}, "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e9:.3f} GB), share of "
+              f"bound {bound_ms / ms:.1%}")
         if not exact:
             raise AssertionError(f"K3 D={d} differs from its plain version")
         results[d] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
+                          bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms)
+    # what holds K3 back: the same 262,144 output groups of 8 x 128 drawn
+    # from tables that fit L2, and the output's write alone
+    groups, d = (1 << 21) // 8, 128
+    out = torch.empty(groups * 8, d, device="cuda")
+    zero_ms = time_ms(lambda: out.zero_())
+    del out
+    sweep = []
+    for table_groups in (2048, 4096, 8192):
+        table = torch.randn(table_groups * 8, d, device="cuda", generator=gen)
+        gidx = torch.randint(0, table_groups, (groups,), device="cuda", generator=gen,
+                             dtype=torch.int32)
+        k_ms = time_ms(lambda: gg.launch_kernel(gidx, table))
+        p_ms = time_ms(lambda: gg.group_gather_reference(gidx, table))
+        sweep.append(f"{table.numel() * 4 / 1e6:.1f} MB table: K3 {k_ms:.4f} ms, "
+                     f"index_select {p_ms:.4f} ms")
+    print(f"[kernel] group_gather by table size ({groups} groups of 8 x {d} f32 each): "
+          + "; ".join(sweep) + f"; the output's write alone (zero_ of "
+          f"{groups * 32 * d / 1e9:.2f} GB) {zero_ms:.4f} ms")
     return results
 
 
@@ -895,6 +1034,8 @@ def main():
         "launches": launches, "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
         "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
         "bound_by": bf["bound_by"], "library_ms": None,
+        "share_of_bound": bf["share_of_bound"], "kernel_ms": bf["kernel_ms"],
+        "pack_ms": bf["pack_ms"], "host_ms": bf["host_ms"], "differ_share": bf["differ_share"],
         "float32": res["float32"],
     }, dict({
         "name": "block_table_grad", "route": "cuda",

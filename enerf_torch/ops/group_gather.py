@@ -41,15 +41,17 @@ def _lib():
     from enerf_torch.ops.cuda_build import load_library
     fn = load_library("group_gather").group_gather_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
                        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def launch_kernel(gidx, table, windows=8):
-    """Launch K3 on CUDA tensors -> [M * 8, D] f32.  An index outside
-    [0, T / 8) makes the kernel trap (reported at the next sync)."""
+    """Launch K3 on CUDA tensors -> [M * 8, D] f32, `windows` the stages of
+    each block's shared-memory ring (groups in flight per block).  An index
+    outside [0, T / 8) makes the kernel trap before it copies that index's
+    batch (reported at the next sync)."""
     _check(gidx, table, windows)
     if not table.is_cuda:
         raise ValueError("launch_kernel needs CUDA tensors")
@@ -57,12 +59,16 @@ def launch_kernel(gidx, table, windows=8):
         raise ValueError("group_gather: the table must be 16-byte aligned")
     gidx = gidx.contiguous()
     T, D = table.shape
-    out = torch.empty(gidx.shape[0] * 8, D, dtype=torch.float32, device=table.device)
+    M = gidx.shape[0]
+    out = torch.empty(M * 8, D, dtype=torch.float32, device=table.device)
+    # scratch of the slice-order pre-pass: the walk and its slice counters
+    order = torch.empty(M, dtype=torch.int32, device=table.device)
+    counts = torch.empty(2 * 1024, dtype=torch.int32, device=table.device)
     fn = _lib()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = fn(table.data_ptr(), gidx.data_ptr(), out.data_ptr(), gidx.shape[0], T // 8,
-                 D, windows, stream)
+        err = fn(table.data_ptr(), gidx.data_ptr(), out.data_ptr(), order.data_ptr(),
+                 counts.data_ptr(), M, T // 8, D, windows, stream)
     if err != 0:
         raise RuntimeError(f"group_gather kernel launch failed: cudaError {err}")
     group_gather.launches += 1
@@ -71,8 +77,9 @@ def launch_kernel(gidx, table, windows=8):
 
 def group_gather(gidx, table, windows=8):
     """Gather the 8-row groups `gidx` of `table` -> [M * 8, D] f32: K3 on
-    CUDA tensors (`windows` groups in flight per thread block), the plain
-    version on CPU tensors."""
+    CUDA tensors (the groups taken slice by slice of the table; `windows`
+    groups in flight per thread block, TMA bulk copies through a ring of
+    that many stages), the plain version on CPU tensors."""
     if table.is_cuda:
         return launch_kernel(gidx, table, windows)
     _check(gidx, table, windows)
