@@ -7,14 +7,17 @@ Phases (one line each; any failure exits non-zero before the result lines):
   1. device: the card's name and power limit (nvidia-smi), CUDA required;
   2. build: every csrc/*.cu kernel, one nvcc each, started together, with
      the -Xptxas -v register / shared-memory / spill lines, and the count of
-     tensor-core instructions in K1's SASS and of bulk copies in K3's
-     (cuobjdump; K1's bf16 kernel without one fails);
+     tensor-core instructions in K1's SASS, of bulk copies in K3's and of
+     shared-memory atomics in K2's accumulation (cuobjdump; a kernel
+     without its own fails);
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes, with the stated tolerances; kernel, plain, library and
      bound times and the share of the bound (K1 fused_field_head, timed
      over 6 input sets that together exceed L2; K2 block_table_grad at
-     block 4 and 3; K3 group_gather, bit-exact, at the gather benchmark's
-     default shape and at the block-grid table's);
+     block 4 and 3, its pre-pass's plan against the plain plan, the
+     pre-pass's time alone and the time by tile size and chunk length; K3
+     group_gather, bit-exact, at the gather benchmark's default shape and
+     at the block-grid table's);
   3b. gather benchmark: enerf_torch.tools.bench_gather at its defaults and
      with --rows 97824 --d 250, every variant's rows/s and GB/s (the path
      that runs K3);
@@ -30,7 +33,9 @@ Phases (one line each; any failure exits non-zero before the result lines):
      separate marches, 8192 rays x 32 samples, compact_frac 0.25, bf16,
      the ball bitfield) with fast_table_grad on (K2) and off (index_add_),
      from the same state with the same noise; step 1's table gradients
-     must agree within K2's tolerance, scaled to the gradients' size;
+     must agree within K2's tolerance, scaled to the gradients' size; then
+     K2 alone on each render's step-1 pairs (clustered march samples),
+     held to the same tolerance and timed like phase 3;
   8. no-event pair: 8 main-path steps with negative_event_sampling and
      precompute_evs_poses=0 (the device slerp); loss_no_evs must be logged
      and finite at every step, and > 0 at one step at least;
@@ -171,23 +176,33 @@ def sass_functions(name):
 
 
 def sass_counts():
-    """Tensor-core instructions (HMMA / HGMMA) in K1's SASS and bulk copies
-    (UBLKCP) in K3's; K1's bf16 kernel must have tensor-core instructions
-    and K3 (the TMA design) bulk copies."""
+    """Tensor-core instructions (HMMA / HGMMA) in K1's SASS, bulk copies
+    (UBLKCP) in K3's and shared-memory atomics (ATOMS, the form of
+    red.shared) in K2's accumulation; K1's bf16 kernel must have
+    tensor-core instructions, K3 (the TMA design) bulk copies and K2 (the
+    shared-memory tile design) shared-memory atomics."""
     def count(funcs, key, ops):
         return {f: sum(any(ins.startswith(op) for op in ops) for ins in body)
                 for f, body in funcs.items() if key in f}
 
     k1 = count(sass_functions("fused_field_head"), "head_", ("HMMA", "HGMMA"))
     k3 = count(sass_functions("group_gather"), "group_gather", ("UBLKCP",))
+    k2_funcs = sass_functions("block_table_grad")
+    k2 = count(k2_funcs, "accumulate", ("ATOMS",))
+    k2_ops = sorted({ins.split()[0] for f, body in k2_funcs.items() if "accumulate" in f
+                     for ins in body if ins.startswith(("ATOM", "RED"))})
     bf16 = sum(c for f, c in k1.items() if "bf16" in f)
     print(f"[build] SASS: fused_field_head tensor-core instructions (HMMA/HGMMA) per kernel "
           f"{k1}; group_gather bulk copies (UBLKCP) per kernel {k3} (design kept: TMA bulk "
-          f"copies through a shared-memory ring with L2 evict_last / evict_first policies)")
+          f"copies through a shared-memory ring with L2 evict_last / evict_first policies); "
+          f"block_table_grad shared-memory atomics (ATOMS) in the accumulation {k2}, its "
+          f"atomic opcodes {k2_ops}")
     if not bf16:
         raise AssertionError("K1's bf16 kernel has no tensor-core instruction in its SASS")
     if not sum(k3.values()):
         raise AssertionError("K3 has no bulk-copy instruction in its SASS")
+    if not sum(k2.values()):
+        raise AssertionError("K2's accumulation has no shared-memory atomic in its SASS")
 
 
 def head_inputs(B, dtype, gen, sets=1):
@@ -336,14 +351,77 @@ def k2_magnitude(pair_list, total_rows, meta):
                for rid, lo, frac, g in pair_list)
 
 
-def k2_within_bound(got, pairs, total_rows, meta):
-    """K2 (or its f32 twin) against the float64 twin, with the absolute
-    floor 1e-7 (for g ~ N(0, 1))."""
+def k2_measure(pairs, meta, floor):
+    """K2 on one set of pairs: its gradient and the f32 plain version's
+    against the float64 plain version (k2_agrees with `floor`), the card's
+    plan against the plain plan, and the times of the kernel, of its
+    pre-pass alone, of the plain version and of the library call
+    (index_add_ of the prebuilt dense rows: the scatter of the plain
+    version and of the trainer's default backward)."""
     import torch
     from enerf_torch.ops import scatter_accum as sa
-    ref64 = sa.block_table_grad_reference(*pairs, total_rows, meta, torch.float64)
-    return k2_agrees((got.double() - ref64).abs(), k2_magnitude([pairs], total_rows, meta),
-                     1e-7)
+    from enerf_torch.ops.blockgrid import _trilinear_weights
+
+    T, RC = meta.total_rows, meta.row_cells
+    P = pairs[0].shape[0]
+    got = sa.launch_kernel(*pairs, T, meta)
+    twin = sa.block_table_grad_reference(*pairs, T, meta)
+    ref64 = sa.block_table_grad_reference(*pairs, T, meta, torch.float64)
+    mag = k2_magnitude([pairs], T, meta)
+    ok_k, ratio_k = k2_agrees((got.double() - ref64).abs(), mag, floor)
+    ok_t, ratio_t = k2_agrees((twin.double() - ref64).abs(), mag, floor)
+    max_abs = float((got - twin).abs().max())
+    del got, twin, ref64, mag
+    plan_ok, plan = k2_plan_agrees(pairs, T, meta)
+    # device times from CUDA graphs (the wrapper's host time per call is
+    # of the kernel's order); the host-enqueued time beside them
+    ms = graph_ms(lambda: sa.launch_kernel(*pairs, T, meta), iters=10)
+    prepass_ms = graph_ms(lambda: sa.launch_prepass(*pairs, T, meta, plan.tile_rows,
+                                                    sa.CHUNK_PAIRS), iters=10)
+    host_ms = time_ms(lambda: sa.launch_kernel(*pairs, T, meta))
+    split = kernel_split(lambda: sa.launch_kernel(*pairs, T, meta), ms)
+    plain_ms = time_ms(lambda: sa.block_table_grad_reference(*pairs, T, meta), iters=5)
+    rid, lo, frac, gg = pairs
+    rows = (gg[:, :, None] * _trilinear_weights(lo, frac, meta)[:, None, :]).reshape(P, -1)
+    rid64, acc = rid.long(), torch.zeros(T, 2 * RC, device="cuda")
+    library_ms = time_ms(lambda: acc.index_add_(0, rid64, rows), iters=5)
+    del rows, acc
+    bound_ms, bound_by, nbytes = k2_bound(P, T, RC)
+    line = (f"|K2 - f64| / bound {ratio_k:.3e}, |f32 twin - f64| / bound {ratio_t:.3e} (bound "
+            f"1e-5 * sum|g W| + {floor:.3e}), |K2 - twin| max {max_abs:.3e}, exactly 0 where "
+            f"sum|g W| is 0; pre-pass plan = plain plan {plan_ok} ({plan_line(plan)}) -> "
+            f"{'ok' if ok_k and ok_t and plan_ok else 'FAIL'}; kernel {ms:.4f} ms (the pre-pass "
+            f"alone {prepass_ms:.4f} ms; by kernel {split}; one call enqueued from the host "
+            f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB), share of bound "
+            f"{bound_ms / ms:.1%}")
+    return dict(ok=ok_k and ok_t and plan_ok, line=line, max_abs_err=max_abs, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms, prepass_ms=prepass_ms, host_ms=host_ms,
+                by_kernel=split, pairs=P)
+
+
+def kernel_split(fn, ms, calls=5):
+    """{kernel: mean device ms per call of fn} from torch.profiler over
+    `calls` calls; "not measured" where the profiler's kernels do not add
+    up to within 20% of fn's device time `ms` (records lost)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0))
+        if dev_us > 0 and ev.key != "" and not ev.key.startswith("ProfilerStep"):
+            name = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
+            split[name] = round(split.get(name, 0.0) + dev_us / calls / 1e3, 4)
+    if abs(sum(split.values()) - ms) > 0.2 * ms:
+        return f"not measured (the profiler's kernels add up to {sum(split.values()):.4f} ms)"
+    return split
 
 
 def hook_k2_inputs(loss, store):
@@ -365,54 +443,68 @@ def hook_k2_inputs(loss, store):
             node.register_prehook(pre)
 
 
+def k2_plan_agrees(pairs, total_rows, meta):
+    """K2's pre-pass on the card against its plain version
+    (scatter_accum.table_grad_plan): the same tile counts, offsets and work
+    list.  Returns (ok, the plain plan)."""
+    import torch
+    from enerf_torch.ops import scatter_accum as sa
+    rid, _, _, g = pairs
+    got = sa.device_plan(*pairs, total_rows, meta)
+    ref = sa.table_grad_plan(rid, g, total_rows, sa.tile_rows_of(meta))
+    return all(torch.equal(got[k], getattr(ref, k)) for k in got), ref
+
+
+def plan_line(plan):
+    shared = plan.chunk_tile[plan.chunk_shared].unique().numel()
+    return (f"{plan.counts.numel()} tiles of {plan.tile_rows} rows, {int(plan.offsets[-1])} "
+            f"live pairs, {plan.chunk_tile.numel()} chunks, {shared} shared tiles "
+            f"({int(plan.chunk_shared.sum())} chunks)")
+
+
 def phase_k2_kernel():
     """K2 against its plain version at the main path's shape: 131,072
     samples (4096 rays x 64 x 0.5) x 16 levels x 2 features, positions in
-    the unit box and g ~ N(0, 1) from a seed; block 4 and block 3."""
+    the unit box and g ~ N(0, 1) from a seed; block 4 and block 3.  Its
+    pre-pass's plan against the plain plan, the pre-pass's time alone, and
+    the kernel's time over tile sizes and chunk lengths."""
     import torch
     from enerf_torch.models.field import FieldStatic
     from enerf_torch.ops import scatter_accum as sa
-    from enerf_torch.ops.blockgrid import _trilinear_weights
 
     B = 4096 * 32
     gen = torch.Generator(device="cuda").manual_seed(2)
     results = {}
     for block in (4, 3):
         meta = FieldStatic(bound=1.0, encoding="blockgrid", grid_block=block).grid_meta
-        T, RC = meta.total_rows, meta.row_cells
+        T = meta.total_rows
         x = torch.rand(B, 3, device="cuda", generator=gen)
         g = torch.randn(B, 2 * meta.num_levels, device="cuda", generator=gen)
         pairs = sa.pair_inputs(x, g, meta)
-        P = pairs[0].shape[0]
-        got = sa.launch_kernel(*pairs, T, meta)
-        twin = sa.block_table_grad_reference(*pairs, T, meta)
-        torch.cuda.synchronize()
-        ok_k, ratio_k = k2_within_bound(got, pairs, T, meta)
-        ok_t, ratio_t = k2_within_bound(twin, pairs, T, meta)
-        max_abs = float((got - twin).abs().max())
-        ms = time_ms(lambda: sa.launch_kernel(*pairs, T, meta))
-        plain_ms = time_ms(lambda: sa.block_table_grad_reference(*pairs, T, meta), iters=5)
-        # the library call: index_add_ of the prebuilt dense rows, the
-        # scatter of the plain version and of the trainer's default backward
-        rid, lo, frac, gg = pairs
-        rows = (gg[:, :, None] * _trilinear_weights(lo, frac, meta)[:, None, :]).reshape(P, -1)
-        rid64, acc = rid.long(), torch.zeros(T, 2 * RC, device="cuda")
-        library_ms = time_ms(lambda: acc.index_add_(0, rid64, rows), iters=5)
-        del rows, acc
-        bound_ms, bound_by, nbytes = k2_bound(P, T, RC)
-        ok = ok_k and ok_t
-        print(f"[kernel] block_table_grad blk{block} {P} pairs -> [{T}, {2 * RC}]: "
-              f"|K2 - f64| / bound {ratio_k:.3e}, |f32 twin - f64| / bound {ratio_t:.3e} "
-              f"(bound 1e-5 * sum|g W| + 1e-7), |K2 - twin| max {max_abs:.3e} -> "
-              f"exactly 0 where sum|g W| is 0 -> "
-              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-              f"({nbytes / 1e6:.1f} MB), share of bound {bound_ms / ms:.1%}")
-        if not ok:
-            raise AssertionError(f"K2 blk{block} is outside its bound of the float64 twin")
-        results[block] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                              share_of_bound=bound_ms / ms)
+        # the absolute floor 1e-7 for g ~ N(0, 1)
+        r = k2_measure(pairs, meta, 1e-7)
+        print(f"[kernel] block_table_grad blk{block} {r['pairs']} pairs -> [{T}, "
+              f"{2 * meta.row_cells}]: {r['line']}")
+        if not r.pop("ok"):
+            raise AssertionError(f"K2 blk{block} is outside its bound of the float64 twin, "
+                                 "or its pre-pass differs from the plain plan")
+        # the same pairs sample by sample (pair_inputs lists them level by level)
+        L = meta.num_levels
+        by_sample = [a.reshape(L, -1, *a.shape[1:]).transpose(0, 1).reshape(a.shape).contiguous()
+                     for a in pairs]
+        sample_ms = time_ms(lambda: sa.launch_kernel(*by_sample, T, meta), iters=10)
+        sweep = [f"the same pairs sample by sample {sample_ms:.4f}"]
+        del by_sample
+        for tile_kb in (48, 96, 200):
+            for chunk in (2048, 4096, 8192):
+                v_ms = time_ms(lambda: sa.launch_kernel(*pairs, T, meta, tile_bytes=tile_kb * 1024,
+                                                        chunk_pairs=chunk), iters=10)
+                sweep.append(f"{tile_kb} KB / {chunk} {v_ms:.4f}")
+        print(f"[kernel] block_table_grad blk{block}, ms (CUDA events): "
+              + ", ".join(sweep) + f"; by tile size / chunk length (default "
+              f"{sa.TILE_BYTES // 1024} KB / {sa.CHUNK_PAIRS})")
+        del r["line"], r["pairs"]
+        results[block] = r
     return results
 
 
@@ -782,7 +874,18 @@ def phase_k2_path():
               f"{max(r['peak_gib'] for r in rs):.2f} GiB")
     if not ok:
         raise AssertionError("the K2 path disagrees with the index_add_ path")
-    return runs[True][0]["launches"]
+    # K2 alone on the path's own step-1 pairs (clustered march samples),
+    # each render's: the same tolerance, the floor scaled as above
+    on_path = []
+    for i, pairs in enumerate(pair_log):
+        r = k2_measure(pairs, meta, 1e-7 * float(k2_magnitude([pairs], meta.total_rows,
+                                                               meta).max()))
+        print(f"[k2path] K2 alone on render {i + 1}'s {r['pairs']} pairs of step 1: {r['line']}")
+        if not r.pop("ok"):
+            raise AssertionError("K2 disagrees with its plain version on the K2 path's pairs")
+        del r["line"]
+        on_path.append(r)
+    return runs[True][0]["launches"], on_path
 
 
 def phase_no_event(workspace):
@@ -1014,7 +1117,7 @@ def main():
         phase_inference(trainer, val)
         phase_breakdown(trainer, train)
         del trainer, train, val
-        k2_launches = phase_k2_path()
+        k2_launches, k2_on_path = phase_k2_path()
         phase_no_event(os.path.join(REPO, "build", "chip_smoke_noev"))
         workspace = os.path.join(REPO, "build", "chip_smoke_default")
         trainer, train = phase_default_path(workspace)
@@ -1041,7 +1144,7 @@ def main():
         "name": "block_table_grad", "route": "cuda",
         "source": "enerf_torch/csrc/block_table_grad.cu",
         "replaces": "enerf_tpu/ops/scatter_accum.py:46",
-        "launches": k2_launches}, **k2[4], block3=k2[3]),
+        "launches": k2_launches}, **k2[4], block3=k2[3], k2_path_pairs=k2_on_path),
         dict({
             "name": "group_gather", "route": "cuda",
             "source": "enerf_torch/csrc/group_gather.cu",

@@ -7,37 +7,49 @@ gradients into that row.  `block_table_grad` picks its implementation from
 the device of its inputs: the plain PyTorch version on CPU tensors, kernel
 K2 on CUDA tensors (a failed build or launch raises).
 
-Inputs are flat over the pairs, pair i = sample * L + level: `rid` [P]
-int32 global row ids (level offsets added), `lo` [P, 3] int32 cell offsets
-in the block, `frac` [P, 3] f32, `g` [P, 2] f32.  The output is the flat
+Inputs are flat over the (sample, level) pairs, in any order
+(`pair_inputs` lists them level by level): `rid` [P] int32 global row ids
+(level offsets added), `lo` [P, 3] int32 cell offsets in the block, `frac`
+[P, 3] f32, `g` [P, 2] f32.  The output is the flat
 [total_rows, 2 * row_cells] gradient in the table's channel-planar layout
 (row[c * row_cells + p]); K2 needs no padding and no depad, unlike the TPU
 kernel's per-level [rows_max, 2 * cell_pad] tiles.
+
+K2 first sorts the pairs into tiles of consecutive rows whose gradient
+fits one block's shared memory, cut into chunks of at most CHUNK_PAIRS
+pairs; `table_grad_plan` computes that plan in plain PyTorch, and the CPU
+tests accumulate chunk by chunk along it as the kernel does.
 
 `block_encode_fast` is `block_encode` with this backward: positions get a
 zero gradient, as in the JAX package (rays are data, not parameters).
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from enerf_torch.ops.blockgrid import _trilinear_weights, block_address, encode_forward
 
 PAIR_CHUNK = 1 << 20  # pairs per chunk of the plain version's dense rows
+TILE_BYTES = 96 * 1024  # shared memory of one K2 block: a tile of rows' gradient
+CHUNK_PAIRS = 4096  # K2's work list: pairs per chunk at most
+MAX_TILES = 16384  # csrc/block_table_grad.cu: kMaxTiles
 
 
 def pair_inputs(x, g_out, meta, oob=None):
     """K2's inputs for clipped positions x [N, 3] and the gradient of the
     encoding g_out [N, L * 2], zeroed for the out-of-box samples `oob` [N]:
-    (rid [N*L] int32, lo [N*L, 3] int32, frac [N*L, 3] f32, g [N*L, 2] f32)."""
+    (rid [L*N] int32, lo [L*N, 3] int32, frac [L*N, 3] f32, g [L*N, 2] f32),
+    listed level by level (pair level * N + sample), so that a run of
+    consecutive pairs falls on few of K2's tiles."""
     rid, lo, frac = block_address(x, meta)
     rid = rid + meta.tensors(x.device)["offsets"][None, :]
     g = g_out.reshape(-1, meta.num_levels, 2).to(torch.float32)
     if oob is not None:
         g = g.masked_fill(oob[:, None, None], 0.0)
-    return (rid.reshape(-1).to(torch.int32), lo.reshape(-1, 3).to(torch.int32),
-            frac.reshape(-1, 3).contiguous(), g.reshape(-1, 2).contiguous())
+    return (rid.t().reshape(-1).to(torch.int32), lo.transpose(0, 1).reshape(-1, 3).to(torch.int32),
+            frac.transpose(0, 1).reshape(-1, 3), g.transpose(0, 1).reshape(-1, 2))
 
 
 def block_table_grad_reference(rid, lo, frac, g, total_rows, meta, dtype=torch.float32):
@@ -70,30 +82,136 @@ def _check(rid, lo, frac, g, meta):
         raise ValueError("block_table_grad: operands on different devices")
 
 
+def tile_rows_of(meta, tile_bytes=TILE_BYTES):
+    """Rows per tile of K2's plan: the most whose gradient (2 * row_cells
+    f32 each) fits `tile_bytes` of shared memory, rounded down to an even
+    count, so that every tile's span of the flat gradient starts on a
+    16-byte boundary."""
+    rows = tile_bytes // (8 * meta.row_cells)
+    rows -= rows % 2
+    if not 2 <= rows <= 65535:
+        raise ValueError(f"block_table_grad: {tile_bytes} bytes give {rows} rows per tile of "
+                         f"{8 * meta.row_cells} bytes (2 to 65535 wanted)")
+    return rows
+
+
+class TablePlan(NamedTuple):
+    """The plan of K2's pre-pass.  Tile t holds the rows [t * tile_rows,
+    (t + 1) * tile_rows); its records are [offsets[t], offsets[t + 1]) of
+    `order` (the pair of each record), cut into chunks of at most
+    chunk_pairs records; a tile of one chunk is owned, a tile of several
+    shared.  A tile with no record has one chunk, empty, which writes its
+    zeros."""
+    tile_rows: int
+    tile_of_row: torch.Tensor   # [total_rows] int64
+    counts: torch.Tensor        # [tiles] int64, the live pairs on each tile
+    offsets: torch.Tensor       # [tiles + 1] int64
+    order: torch.Tensor         # [records] int64 pair indices, tile by tile
+    chunk_tile: torch.Tensor    # [chunks] int64
+    chunk_begin: torch.Tensor   # [chunks] int64 first record
+    chunk_end: torch.Tensor     # [chunks] int64 one past the last record
+    chunk_shared: torch.Tensor  # [chunks] bool
+
+
+def table_grad_plan(rid, g, total_rows, tile_rows, chunk_pairs=CHUNK_PAIRS):
+    """The plan that K2's pre-pass builds, in plain PyTorch: pairs whose g
+    is all zero (out-of-box samples) are left out, the others are listed
+    tile by tile in pair order (the kernel's order within a tile is any)."""
+    dev = rid.device
+    tiles = -(-total_rows // tile_rows)
+    live = torch.nonzero((g != 0).any(dim=1)).squeeze(1)
+    tile = rid[live].long() // tile_rows
+    counts = torch.bincount(tile, minlength=tiles)
+    offsets = torch.zeros(tiles + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(counts, 0)
+    order = live[torch.argsort(tile, stable=True)]
+    per_tile = torch.clamp((counts + chunk_pairs - 1) // chunk_pairs, min=1)
+    chunk_tile = torch.repeat_interleave(torch.arange(tiles, device=dev), per_tile)
+    first = torch.cumsum(per_tile, 0) - per_tile  # each tile's first chunk
+    begin = offsets[chunk_tile] + (torch.arange(chunk_tile.shape[0], device=dev)
+                                   - first[chunk_tile]) * chunk_pairs
+    end = torch.minimum(begin + chunk_pairs, offsets[chunk_tile + 1])
+    return TablePlan(tile_rows, torch.arange(total_rows, device=dev) // tile_rows, counts,
+                     offsets, order, chunk_tile, begin, end, per_tile[chunk_tile] > 1)
+
+
+def _scratch(P, total_rows, tile_rows, chunk_pairs, device):
+    """K2's scratch (csrc/block_table_grad.cu: Scratch), one byte buffer:
+    the records (16 + 8 bytes per pair), then the int32 plan."""
+    tiles = -(-total_rows // tile_rows)
+    if tiles > MAX_TILES:
+        raise ValueError(f"block_table_grad: {tiles} tiles of {tile_rows} rows, at most "
+                         f"{MAX_TILES} (a larger tile_bytes)")
+    max_chunks = tiles + -(-P // chunk_pairs)
+    return torch.empty(24 * P + 4 * (4 * tiles + 4 + max_chunks), dtype=torch.uint8,
+                       device=device)
+
+
 def _lib():
     from enerf_torch.ops.cuda_build import load_library
     lib = load_library("block_table_grad")
-    fn = lib.block_table_grad_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    pre, launch = lib.block_table_grad_prepass, lib.block_table_grad_launch
+    if pre.argtypes is None:
+        pre.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
+                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        pre.restype = ctypes.c_int
+        launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
+                           + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        launch.restype = ctypes.c_int
+    return pre, launch
 
 
-def launch_kernel(rid, lo, frac, g, total_rows, meta):
-    """Launch K2 on CUDA tensors -> [total_rows, 2 * row_cells] f32."""
+def launch_prepass(rid, lo, frac, g, total_rows, meta, tile_rows, chunk_pairs):
+    """K2's pre-pass alone on CUDA tensors -> its scratch (records, plan)."""
+    if not rid.is_cuda:
+        raise ValueError("launch_prepass needs CUDA tensors")
+    P = rid.shape[0]
+    scratch = _scratch(P, total_rows, tile_rows, chunk_pairs, rid.device)
+    ops = [t.contiguous() for t in (rid, lo, frac, g)]
+    pre, _ = _lib()
+    with torch.cuda.device(rid.device):
+        err = pre(*[t.data_ptr() for t in ops], scratch.data_ptr(), P, total_rows, tile_rows,
+                  chunk_pairs, meta.halo,
+                  torch.cuda.current_stream(rid.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"block_table_grad pre-pass launch failed: cudaError {err}")
+    return scratch
+
+
+def device_plan(rid, lo, frac, g, total_rows, meta):
+    """The plan of K2's pre-pass as the card builds it, on CUDA tensors:
+    {counts, offsets, chunk_tile} as int64, TablePlan's fields of those
+    names (the card's order of the records within a tile is any)."""
+    _check(rid, lo, frac, g, meta)
+    tile_rows = tile_rows_of(meta)
+    P, T = rid.shape[0], -(-total_rows // tile_rows)
+    plan = launch_prepass(rid, lo, frac, g, total_rows, meta, tile_rows,
+                          CHUNK_PAIRS)[24 * P:].view(torch.int32)
+    return dict(counts=plan[:T].long(), offsets=plan[T:2 * T + 1].long(),
+                chunk_tile=plan[4 * T + 4:4 * T + 4 + int(plan[4 * T + 2])].long())
+
+
+def launch_kernel(rid, lo, frac, g, total_rows, meta, tile_bytes=TILE_BYTES,
+                  chunk_pairs=CHUNK_PAIRS):
+    """Launch K2 on CUDA tensors -> [total_rows, 2 * row_cells] f32: the
+    pre-pass sorts the pairs into tiles of rows that fit `tile_bytes` of
+    shared memory, and persistent blocks accumulate each chunk of at most
+    `chunk_pairs` pairs in shared memory and write its tile."""
     _check(rid, lo, frac, g, meta)
     if not rid.is_cuda:
         raise ValueError("launch_kernel needs CUDA tensors")
+    grad = torch.empty(total_rows, 2 * meta.row_cells, dtype=torch.float32, device=rid.device)
+    if total_rows == 0:
+        return grad
+    P = rid.shape[0]
+    tile_rows = tile_rows_of(meta, tile_bytes)
+    scratch = _scratch(P, total_rows, tile_rows, chunk_pairs, rid.device)
     ops = [t.contiguous() for t in (rid, lo, frac, g)]
-    grad = torch.empty(total_rows, 2 * meta.row_cells, dtype=torch.float32,
-                       device=rid.device)
-    fn = _lib()
+    _, launch = _lib()
     with torch.cuda.device(rid.device):
-        stream = torch.cuda.current_stream(rid.device).cuda_stream
-        err = fn(*[t.data_ptr() for t in ops], grad.data_ptr(), rid.shape[0],
-                 total_rows, meta.halo, meta.row_cells, stream)
+        err = launch(*[t.data_ptr() for t in ops], grad.data_ptr(), scratch.data_ptr(), P,
+                     total_rows, tile_rows, chunk_pairs, meta.halo, meta.row_cells,
+                     torch.cuda.current_stream(rid.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"block_table_grad kernel launch failed: cudaError {err}")
     block_table_grad.launches += 1

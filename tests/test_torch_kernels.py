@@ -94,19 +94,13 @@ def test_bf16_head_padded_widths_and_infinite_sigma_on_card(E):
     torch.testing.assert_close(c_k, c_p, rtol=0, atol=1e-2)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("block", [4, 3])
-def test_table_grad_kernel_matches_twin_on_card(block):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (K2 has no CPU mode)")
-    g = torch.Generator(device="cuda").manual_seed(1)
-    meta = BlockGridMeta(num_levels=16, level_dim=2, block=block)
-    B = 70_000  # samples; x 16 levels, not a multiple of the 256-thread block
-    x = torch.rand(B, 3, device="cuda", generator=g)
-    g_out = torch.randn(B, 32, device="cuda", generator=g)
-    pairs = scatter_accum.pair_inputs(x, g_out, meta)
+def _table_grad_on_card(pairs, meta, **kw):
+    """K2 on the card against the float64 plain version: atomics sum in any
+    order, so per cell within 1e-5 of the sum of the addends' magnitudes
+    (plus 1e-7), and exactly zero where no pair adds.  Returns (K2's
+    gradient, the bound)."""
     before = scatter_accum.block_table_grad.launches
-    got = scatter_accum.block_table_grad(*pairs, meta.total_rows, meta)
+    got = scatter_accum.launch_kernel(*pairs, meta.total_rows, meta, **kw)
     torch.cuda.synchronize()
     assert scatter_accum.block_table_grad.launches == before + 1
     rid, lo, frac, gg = pairs
@@ -114,13 +108,84 @@ def test_table_grad_kernel_matches_twin_on_card(block):
                                                      dtype=torch.float64)
     mag = scatter_accum.block_table_grad_reference(rid, lo, frac, gg.abs(), meta.total_rows,
                                                    meta, dtype=torch.float64)
-    # atomics sum in any order: per cell within 1e-5 of the sum of the
-    # addends' magnitudes (plus 1e-7), against float64; the f32 twin too
     bound = 1e-5 * mag + 1e-7
     assert ((got.double() - ref64).abs() <= bound).all()
-    assert (got[mag == 0] == 0).all()  # cells with no addend stay exactly zero
+    assert (got[mag == 0] == 0).all()  # cells with no addend are written as exact zeros
+    return got, bound
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [4, 3])
+def test_table_grad_kernel_matches_twin_on_card(block):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2 has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    meta = BlockGridMeta(num_levels=16, level_dim=2, block=block)
+    B = 70_000  # samples; x 16 levels, not a multiple of a chunk or a pre-pass block
+    x = torch.rand(B, 3, device="cuda", generator=g)
+    g_out = torch.randn(B, 32, device="cuda", generator=g)
+    pairs = scatter_accum.pair_inputs(x, g_out, meta)
+    before = scatter_accum.block_table_grad.launches
+    scatter_accum.block_table_grad(*pairs, meta.total_rows, meta)  # the entry point
+    assert scatter_accum.block_table_grad.launches == before + 1
+    _, bound = _table_grad_on_card(pairs, meta)
+    ref64 = scatter_accum.block_table_grad_reference(*pairs, meta.total_rows, meta,
+                                                     dtype=torch.float64)
     twin = scatter_accum.block_table_grad_reference(*pairs, meta.total_rows, meta)
     assert ((twin.double() - ref64).abs() <= bound).all()
+    # the card's pre-pass builds the plain plan
+    plan = scatter_accum.table_grad_plan(pairs[0], pairs[3], meta.total_rows,
+                                         scatter_accum.tile_rows_of(meta))
+    got = scatter_accum.device_plan(*pairs, meta.total_rows, meta)
+    for k, v in got.items():
+        assert torch.equal(v, getattr(plan, k)), k
+
+
+def _pairs_on_rows(rows, meta, gen, live=True):
+    """K2's inputs with the given global rows, random cell offsets and
+    fractions; g ~ N(0, 1), or all zero (out-of-box samples)."""
+    P = rows.shape[0]
+    lo = torch.randint(0, meta.block, (P, 3), device="cuda", generator=gen, dtype=torch.int32)
+    frac = torch.rand(P, 3, device="cuda", generator=gen)
+    g = torch.randn(P, 2, device="cuda", generator=gen) * float(live)
+    return rows.to(torch.int32), lo, frac, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [4, 3])
+@pytest.mark.parametrize("case", ["one_row", "more_chunks_than_blocks", "zero_pairs",
+                                  "all_out_of_box", "last_rows"])
+def test_table_grad_kernel_edge_cases_on_card(case, block):
+    """What the tile design can get wrong: one shared tile of many chunks,
+    a work list longer than the persistent grid, no pair, no live pair,
+    the ragged last tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2 has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    meta = BlockGridMeta(num_levels=16, level_dim=2, block=block)
+    T, kw = meta.total_rows, {}
+    if case == "one_row":  # ~25 chunks of one tile, every add on one row
+        pairs = _pairs_on_rows(torch.full((100_000,), 300, device="cuda"), meta, gen)
+    elif case == "more_chunks_than_blocks":  # ~17,500 chunks of 64 pairs, ~2 blocks per SM
+        x = torch.rand(70_000, 3, device="cuda", generator=gen)
+        g_out = torch.randn(70_000, 32, device="cuda", generator=gen)
+        pairs, kw = scatter_accum.pair_inputs(x, g_out, meta), dict(chunk_pairs=64)
+    elif case == "zero_pairs":
+        pairs = _pairs_on_rows(torch.zeros(0, device="cuda"), meta, gen)
+    elif case == "all_out_of_box":
+        x = torch.rand(5_000, 3, device="cuda", generator=gen)
+        g_out = torch.randn(5_000, 32, device="cuda", generator=gen)
+        oob = torch.ones(5_000, dtype=torch.bool, device="cuda")
+        pairs = scatter_accum.pair_inputs(x, g_out, meta, oob)
+    else:  # the last rows: the table's last tile is shorter than the others
+        assert T % scatter_accum.tile_rows_of(meta)
+        rows = torch.randint(T - 40, T, (50_000,), device="cuda", generator=gen)
+        pairs = _pairs_on_rows(rows, meta, gen)
+    got, _ = _table_grad_on_card(pairs, meta, **kw)
+    if case in ("zero_pairs", "all_out_of_box"):
+        assert torch.equal(got, torch.zeros_like(got))
+    else:
+        assert got.abs().max() > 0
 
 
 @pytest.mark.gpu
