@@ -15,8 +15,8 @@ Phases (one line each; any failure exits non-zero before the result lines):
      bound times and the share of the bound (K1 fused_field_head, timed
      over 6 input sets that together exceed L2; K2 block_table_grad at
      block 4 and 3, its pre-pass's plan against the plain plan, the
-     pre-pass's time alone and the time by tile size and chunk length; K3
-     group_gather, bit-exact, at the gather benchmark's default shape and
+     pre-pass's time alone and the time of the same pairs sample by sample;
+     K3 group_gather, bit-exact, at the gather benchmark's default shape and
      at the block-grid table's);
   3b. gather benchmark: enerf_torch.tools.bench_gather at its defaults and
      with --rows 97824 --d 250, every variant's rows/s and GB/s (the path
@@ -35,7 +35,9 @@ Phases (one line each; any failure exits non-zero before the result lines):
      from the same state with the same noise; step 1's table gradients
      must agree within K2's tolerance, scaled to the gradients' size; then
      K2 alone on each render's step-1 pairs (clustered march samples),
-     held to the same tolerance and timed like phase 3;
+     held to the same tolerance and timed like phase 3; those samples are
+     saved to build/chip_smoke_k2path/step1.pt for
+     enerf_torch/tools/bench_table_grad.py;
   8. no-event pair: 8 main-path steps with negative_event_sampling and
      precompute_evs_poses=0 (the device slerp); loss_no_evs must be logged
      and finite at every step, and > 0 at one step at least;
@@ -321,13 +323,14 @@ def phase_kernels():
     return results
 
 
-def k2_bound(pairs, total_rows, row_cells):
-    """Least time for K2's work: 36 bytes read per (sample, level) pair
-    (rid, lo, frac, g as int32 / f32) and the table gradient written once;
-    ~47 f32 operations per pair (3 subtractions, 12 weight and 16 gradient
-    products, 16 additions)."""
-    nbytes = pairs * 36 + total_rows * 2 * row_cells * 4
-    flops = pairs * 47.0
+def k2_bound(pairs, live, total_rows, row_cells):
+    """Least time for K2's work: g (8 bytes) read of every (sample, level)
+    pair, 28 bytes more (rid, lo, frac as int32 / f32) of each of the
+    `live` pairs whose g is not all zero, and the table gradient written
+    once; ~47 f32 operations per live pair (3 subtractions, 12 weight and
+    16 gradient products, 16 additions)."""
+    nbytes = pairs * 8 + live * 28 + total_rows * 2 * row_cells * 4
+    flops = live * 47.0
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["float32"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
@@ -376,8 +379,7 @@ def k2_measure(pairs, meta, floor):
     # device times from CUDA graphs (the wrapper's host time per call is
     # of the kernel's order); the host-enqueued time beside them
     ms = graph_ms(lambda: sa.launch_kernel(*pairs, T, meta), iters=10)
-    prepass_ms = graph_ms(lambda: sa.launch_prepass(*pairs, T, meta, plan.tile_rows,
-                                                    sa.CHUNK_PAIRS), iters=10)
+    prepass_ms = graph_ms(lambda: sa.launch_prepass(*pairs, T, meta), iters=10)
     host_ms = time_ms(lambda: sa.launch_kernel(*pairs, T, meta))
     split = kernel_split(lambda: sa.launch_kernel(*pairs, T, meta), ms)
     plain_ms = time_ms(lambda: sa.block_table_grad_reference(*pairs, T, meta), iters=5)
@@ -386,14 +388,16 @@ def k2_measure(pairs, meta, floor):
     rid64, acc = rid.long(), torch.zeros(T, 2 * RC, device="cuda")
     library_ms = time_ms(lambda: acc.index_add_(0, rid64, rows), iters=5)
     del rows, acc
-    bound_ms, bound_by, nbytes = k2_bound(P, T, RC)
+    live = int((gg != 0).any(dim=1).sum())
+    bound_ms, bound_by, nbytes = k2_bound(P, live, T, RC)
     line = (f"|K2 - f64| / bound {ratio_k:.3e}, |f32 twin - f64| / bound {ratio_t:.3e} (bound "
             f"1e-5 * sum|g W| + {floor:.3e}), |K2 - twin| max {max_abs:.3e}, exactly 0 where "
             f"sum|g W| is 0; pre-pass plan = plain plan {plan_ok} ({plan_line(plan)}) -> "
             f"{'ok' if ok_k and ok_t and plan_ok else 'FAIL'}; kernel {ms:.4f} ms (the pre-pass "
             f"alone {prepass_ms:.4f} ms; by kernel {split}; one call enqueued from the host "
             f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB), share of bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB for {live} live pairs), "
+            f"share of bound "
             f"{bound_ms / ms:.1%}")
     return dict(ok=ok_k and ok_t and plan_ok, line=line, max_abs_err=max_abs, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -426,9 +430,8 @@ def kernel_split(fn, ms, calls=5):
 
 def hook_k2_inputs(loss, store):
     """Before each block_encode_fast node of loss's graph runs its backward,
-    append to `store` the (rid, lo, frac, g) that the node hands K2, formed
-    from its saved positions and its incoming gradient."""
-    from enerf_torch.ops import scatter_accum as sa
+    append to `store` what the node forms K2's inputs from: its saved
+    positions x, its incoming gradient g_out and its out-of-box mask oob."""
     seen, todo = set(), [loss.grad_fn]
     while todo:
         node = todo.pop()
@@ -439,7 +442,7 @@ def hook_k2_inputs(loss, store):
         if node.name() == "_BlockEncodeFastBackward":
             def pre(grad_outputs, node=node):
                 x, oob = node.saved_tensors
-                store.append(sa.pair_inputs(x, grad_outputs[0], node.meta, oob))
+                store.append(dict(x=x, g_out=grad_outputs[0].clone(), oob=oob))
             node.register_prehook(pre)
 
 
@@ -467,7 +470,7 @@ def phase_k2_kernel():
     samples (4096 rays x 64 x 0.5) x 16 levels x 2 features, positions in
     the unit box and g ~ N(0, 1) from a seed; block 4 and block 3.  Its
     pre-pass's plan against the plain plan, the pre-pass's time alone, and
-    the kernel's time over tile sizes and chunk lengths."""
+    the kernel's time on the same pairs sample by sample."""
     import torch
     from enerf_torch.models.field import FieldStatic
     from enerf_torch.ops import scatter_accum as sa
@@ -492,17 +495,10 @@ def phase_k2_kernel():
         L = meta.num_levels
         by_sample = [a.reshape(L, -1, *a.shape[1:]).transpose(0, 1).reshape(a.shape).contiguous()
                      for a in pairs]
-        sample_ms = time_ms(lambda: sa.launch_kernel(*by_sample, T, meta), iters=10)
-        sweep = [f"the same pairs sample by sample {sample_ms:.4f}"]
+        r["sample_order_ms"] = graph_ms(lambda: sa.launch_kernel(*by_sample, T, meta), iters=10)
         del by_sample
-        for tile_kb in (48, 96, 200):
-            for chunk in (2048, 4096, 8192):
-                v_ms = time_ms(lambda: sa.launch_kernel(*pairs, T, meta, tile_bytes=tile_kb * 1024,
-                                                        chunk_pairs=chunk), iters=10)
-                sweep.append(f"{tile_kb} KB / {chunk} {v_ms:.4f}")
-        print(f"[kernel] block_table_grad blk{block}, ms (CUDA events): "
-              + ", ".join(sweep) + f"; by tile size / chunk length (default "
-              f"{sa.TILE_BYTES // 1024} KB / {sa.CHUNK_PAIRS})")
+        print(f"[kernel] block_table_grad blk{block}: the same pairs sample by sample "
+              f"{r['sample_order_ms']:.4f} ms, level by level {r['ms']:.4f} ms")
         del r["line"], r["pairs"]
         results[block] = r
     return results
@@ -795,7 +791,7 @@ def phase_k2_path():
     bitfield = ball_bitfield(device=dev)
     noise = [(torch.rand(n_rays, device=dev, generator=gen),
               torch.rand(n_rays, device=dev, generator=gen)) for _ in range(steps)]
-    runs, pair_log = {True: [], False: []}, []  # pair_log: K2's inputs of step 1
+    runs, raw_log = {True: [], False: []}, []  # raw_log: K2's inputs of step 1, unformed
     for fast in (True, False, False, True):  # in turns: one call, one card
         first = not runs[fast]
         static = FieldStatic(bound=1.0, out_dim_color=1, encoding="blockgrid",
@@ -822,7 +818,7 @@ def phase_k2_path():
             ll = [losses.log_intensity(out["image"], False) for out in outs]
             loss = losses.event_loss((ll[1] - ll[0])[None], pols[None, :, None], 0.2)
             if fast and first and i == 0:
-                hook_k2_inputs(loss, pair_log)
+                hook_k2_inputs(loss, raw_log)
             torch.cuda.synchronize()
             tb = time.time()
             loss.backward()
@@ -851,6 +847,9 @@ def phase_k2_path():
             raise AssertionError(f"K2 path losses not finite: {step_losses}")
         del state
     meta = static.grid_meta
+    pair_log = [sa.pair_inputs(r["x"], r["g_out"], meta, r["oob"]) for r in raw_log]
+    os.makedirs(os.path.join(REPO, "build", "chip_smoke_k2path"), exist_ok=True)
+    torch.save(raw_log, os.path.join(REPO, "build", "chip_smoke_k2path", "step1.pt"))
     # the gradients here are ~1e-9, so the floor scales with the data: 1e-7
     # of the largest A, where the kernel phase's g ~ N(0, 1) takes 1e-7
     mag = k2_magnitude(pair_log, meta.total_rows, meta)

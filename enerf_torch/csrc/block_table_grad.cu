@@ -14,11 +14,12 @@
 // W = (wx * wy) * wz over the whole row), so every addend is bit-equal to
 // the plain version's; only the order of the sums differs.
 //
-// What bounds it on an H100: bytes.  The work reads 36 bytes per pair (rid
-// 4, lo 12, frac 12, g 8) and writes the table gradient once (97,827 rows x
-// 250 f32 = 97.8 MB at 16 x 2 levels, block 4).  At the main path's
-// 2,097,152 pairs per render that is 75.5 MB + 97.8 MB: 52 us at 3.35 TB/s.
-// There is no arithmetic to speak of (8 weights, 16 products per pair).
+// What bounds it on an H100: bytes.  The work reads g (8 bytes) of every
+// pair and 28 bytes more (rid 4, lo 12, frac 12) of each live pair, one
+// whose g is not all zero, and writes the table gradient once (97,827 rows
+// x 250 f32 = 97.8 MB at 16 x 2 levels, block 4).  At 2,097,152 live pairs
+// that is 75.5 MB + 97.8 MB: 52 us at 3.35 TB/s.  There is no arithmetic
+// to speak of (8 weights, 16 products per live pair).
 //
 // Design: the TPU kernel kept one level's gradient in VMEM, added into it
 // and wrote the level once.  A Hopper block has at most 227 KB of shared
@@ -65,6 +66,10 @@ constexpr int kStage = kScatterThreads * kScatterItems;  // the scatter's pairs 
 constexpr int kStageBytes = kStage * (16 + 8 + 4);  // its staged records and their tiles
 constexpr int kScanThreads = 1024;
 constexpr int kAccThreads = 512;
+// The accumulation's shared memory at most: a tile of 96 KB of gradient
+// (ops/scatter_accum.py: TILE_BYTES) whose rows are padded by one cell,
+// at most 9/8 of it (a row holds 8 cells at least).
+constexpr int kTileSmem = 108 * 1024;
 constexpr int kMaxTiles = 16384;  // the pre-pass's per-block histograms in shared memory
 constexpr int kMaxBlocksPerSM = 4;
 
@@ -473,35 +478,34 @@ extern "C" int block_table_grad_launch(const void* rid, const void* lo, const vo
                                        long long pairs, long long total_rows, int tile_rows,
                                        int chunk_pairs, int halo, int row_cells,
                                        void* stream) {
+  const int smem = tile_rows * tile_stride(row_cells) * 8;
   if (bad_args(pairs, total_rows, tile_rows, chunk_pairs, halo, scratch) ||
-      row_cells != halo * halo * halo || (uintptr_t)grad % 16)
+      row_cells != halo * halo * halo || smem > kTileSmem || (uintptr_t)grad % 16)
     return (int)cudaErrorInvalidValue;
   const int tiles = (int)((total_rows + tile_rows - 1) / tile_rows);
   const long long max_chunks = tiles + (pairs + chunk_pairs - 1) / chunk_pairs;
   const int row_floats = 2 * row_cells;
-  const int smem = tile_rows * tile_stride(row_cells) * 8;
   cudaStream_t s = (cudaStream_t)stream;
 
-  // the persistent grid's size for (device, smem), kept from the last call
-  thread_local int last_dev = -1, last_smem = -1;
+  // the persistent grid's size on this device at kTileSmem, found once
+  thread_local int last_dev = -1;
   thread_local long long max_blocks = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev != last_dev || smem != last_smem) {
+  if (dev != last_dev) {
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(accumulate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
+                                 kTileSmem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, accumulate_kernel,
-                                                          kAccThreads, smem);
+                                                          kAccThreads, kTileSmem);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     max_blocks = (long long)sms * (per_sm < kMaxBlocksPerSM ? per_sm : kMaxBlocksPerSM);
     last_dev = dev;
-    last_smem = smem;
   }
   const Scratch sc = scratch_of(scratch, pairs);
   err = prepass(rid, lo, frac, g, sc, pairs, total_rows, tile_rows, chunk_pairs, halo, s);

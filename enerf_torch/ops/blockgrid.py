@@ -101,29 +101,37 @@ def init_block_table(meta, generator=None, device="cpu"):
     return t.uniform_(-1e-4, 1e-4, generator=generator)
 
 
-def block_address(x, meta):
+def block_address(x, meta, level_major=False):
     """Block addressing for pre-clipped [n, 3] positions in [0, 1].
 
     Returns (rid_local [n, L] int64 row within each level's table,
-    lo [n, L, 3] int64 cell offset in the block, frac [n, L, 3] f32).
+    lo [n, L, 3] int64 cell offset in the block, frac [n, L, 3] f32), or
+    with `level_major` the same values as [L, n], [L, n, 3], [L, n, 3].
     The uint32 hash of the JAX package is done in int64 and masked to 32
     bits before the modulo, which gives the same row ids.
     """
     m = meta.tensors(x.device)
-    pos = x[:, None, :] * m["scales"][None, :, None] + 0.5  # [n, L, 3]
+
+    def per_level(v):  # a level's constant against the pairs' layout
+        return v[:, None] if level_major else v[None, :]
+
+    if level_major:
+        pos = x[None, :, :] * m["scales"][:, None, None] + 0.5  # [L, n, 3]
+    else:
+        pos = x[:, None, :] * m["scales"][None, :, None] + 0.5  # [n, L, 3]
     pg = torch.floor(pos)
     frac = pos - pg
     pg = pg.to(torch.int64)
     b = torch.div(pg, meta.block, rounding_mode="floor")
     lo = pg - b * meta.block
 
-    nb = m["nbs"][None, :]
+    nb = per_level(m["nbs"])
     dense = (b[..., 0] * nb + b[..., 1]) * nb + b[..., 2]
     h = (b[..., 0] * _PRIMES[0]) & _U32
     h = h ^ ((b[..., 1] * _PRIMES[1]) & _U32)
     h = h ^ ((b[..., 2] * _PRIMES[2]) & _U32)
-    rid = torch.where(m["hashed"][None, :], h, dense & _U32)
-    return torch.remainder(rid, m["rows"][None, :]), lo, frac
+    rid = torch.where(per_level(m["hashed"]), h, dense & _U32)
+    return torch.remainder(rid, per_level(m["rows"])), lo, frac
 
 
 def _trilinear_weights(lo, frac, meta):

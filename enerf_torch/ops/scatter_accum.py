@@ -34,7 +34,6 @@ from enerf_torch.ops.blockgrid import _trilinear_weights, block_address, encode_
 PAIR_CHUNK = 1 << 20  # pairs per chunk of the plain version's dense rows
 TILE_BYTES = 96 * 1024  # shared memory of one K2 block: a tile of rows' gradient
 CHUNK_PAIRS = 4096  # K2's work list: pairs per chunk at most
-MAX_TILES = 16384  # csrc/block_table_grad.cu: kMaxTiles
 
 
 def pair_inputs(x, g_out, meta, oob=None):
@@ -42,14 +41,17 @@ def pair_inputs(x, g_out, meta, oob=None):
     encoding g_out [N, L * 2], zeroed for the out-of-box samples `oob` [N]:
     (rid [L*N] int32, lo [L*N, 3] int32, frac [L*N, 3] f32, g [L*N, 2] f32),
     listed level by level (pair level * N + sample), so that a run of
-    consecutive pairs falls on few of K2's tiles."""
-    rid, lo, frac = block_address(x, meta)
-    rid = rid + meta.tensors(x.device)["offsets"][None, :]
-    g = g_out.reshape(-1, meta.num_levels, 2).to(torch.float32)
+    consecutive pairs falls on few of K2's tiles.  The addresses come out
+    in that order; only g is transposed."""
+    rid, lo, frac = block_address(x, meta, level_major=True)
+    rid = rid + meta.tensors(x.device)["offsets"][:, None]
+    L, N = rid.shape
+    g = torch.empty(L, N, 2, dtype=torch.float32, device=x.device)
+    g.copy_(g_out.reshape(N, L, 2).transpose(0, 1))
     if oob is not None:
-        g = g.masked_fill(oob[:, None, None], 0.0)
-    return (rid.t().reshape(-1).to(torch.int32), lo.transpose(0, 1).reshape(-1, 3).to(torch.int32),
-            frac.transpose(0, 1).reshape(-1, 3), g.transpose(0, 1).reshape(-1, 2))
+        g.masked_fill_(oob[None, :, None], 0.0)
+    return (rid.reshape(-1).to(torch.int32), lo.reshape(-1, 3).to(torch.int32),
+            frac.reshape(-1, 3), g.reshape(-1, 2))
 
 
 def block_table_grad_reference(rid, lo, frac, g, total_rows, meta, dtype=torch.float32):
@@ -82,16 +84,16 @@ def _check(rid, lo, frac, g, meta):
         raise ValueError("block_table_grad: operands on different devices")
 
 
-def tile_rows_of(meta, tile_bytes=TILE_BYTES):
+def tile_rows_of(meta):
     """Rows per tile of K2's plan: the most whose gradient (2 * row_cells
-    f32 each) fits `tile_bytes` of shared memory, rounded down to an even
+    f32 each) fits TILE_BYTES of shared memory, rounded down to an even
     count, so that every tile's span of the flat gradient starts on a
     16-byte boundary."""
-    rows = tile_bytes // (8 * meta.row_cells)
+    rows = TILE_BYTES // (8 * meta.row_cells)
     rows -= rows % 2
-    if not 2 <= rows <= 65535:
-        raise ValueError(f"block_table_grad: {tile_bytes} bytes give {rows} rows per tile of "
-                         f"{8 * meta.row_cells} bytes (2 to 65535 wanted)")
+    if rows < 2:
+        raise ValueError(f"block_table_grad: rows of {8 * meta.row_cells} bytes, fewer than 2 "
+                         f"fit a tile of {TILE_BYTES} bytes")
     return rows
 
 
@@ -103,7 +105,6 @@ class TablePlan(NamedTuple):
     shared.  A tile with no record has one chunk, empty, which writes its
     zeros."""
     tile_rows: int
-    tile_of_row: torch.Tensor   # [total_rows] int64
     counts: torch.Tensor        # [tiles] int64, the live pairs on each tile
     offsets: torch.Tensor       # [tiles + 1] int64
     order: torch.Tensor         # [records] int64 pair indices, tile by tile
@@ -131,18 +132,15 @@ def table_grad_plan(rid, g, total_rows, tile_rows, chunk_pairs=CHUNK_PAIRS):
     begin = offsets[chunk_tile] + (torch.arange(chunk_tile.shape[0], device=dev)
                                    - first[chunk_tile]) * chunk_pairs
     end = torch.minimum(begin + chunk_pairs, offsets[chunk_tile + 1])
-    return TablePlan(tile_rows, torch.arange(total_rows, device=dev) // tile_rows, counts,
-                     offsets, order, chunk_tile, begin, end, per_tile[chunk_tile] > 1)
+    return TablePlan(tile_rows, counts, offsets, order, chunk_tile, begin, end,
+                     per_tile[chunk_tile] > 1)
 
 
-def _scratch(P, total_rows, tile_rows, chunk_pairs, device):
+def _scratch(P, total_rows, tile_rows, device):
     """K2's scratch (csrc/block_table_grad.cu: Scratch), one byte buffer:
     the records (16 + 8 bytes per pair), then the int32 plan."""
     tiles = -(-total_rows // tile_rows)
-    if tiles > MAX_TILES:
-        raise ValueError(f"block_table_grad: {tiles} tiles of {tile_rows} rows, at most "
-                         f"{MAX_TILES} (a larger tile_bytes)")
-    max_chunks = tiles + -(-P // chunk_pairs)
+    max_chunks = tiles + -(-P // CHUNK_PAIRS)
     return torch.empty(24 * P + 4 * (4 * tiles + 4 + max_chunks), dtype=torch.uint8,
                        device=device)
 
@@ -161,17 +159,17 @@ def _lib():
     return pre, launch
 
 
-def launch_prepass(rid, lo, frac, g, total_rows, meta, tile_rows, chunk_pairs):
+def launch_prepass(rid, lo, frac, g, total_rows, meta):
     """K2's pre-pass alone on CUDA tensors -> its scratch (records, plan)."""
     if not rid.is_cuda:
         raise ValueError("launch_prepass needs CUDA tensors")
-    P = rid.shape[0]
-    scratch = _scratch(P, total_rows, tile_rows, chunk_pairs, rid.device)
+    P, tile_rows = rid.shape[0], tile_rows_of(meta)
+    scratch = _scratch(P, total_rows, tile_rows, rid.device)
     ops = [t.contiguous() for t in (rid, lo, frac, g)]
     pre, _ = _lib()
     with torch.cuda.device(rid.device):
         err = pre(*[t.data_ptr() for t in ops], scratch.data_ptr(), P, total_rows, tile_rows,
-                  chunk_pairs, meta.halo,
+                  CHUNK_PAIRS, meta.halo,
                   torch.cuda.current_stream(rid.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"block_table_grad pre-pass launch failed: cudaError {err}")
@@ -183,20 +181,17 @@ def device_plan(rid, lo, frac, g, total_rows, meta):
     {counts, offsets, chunk_tile} as int64, TablePlan's fields of those
     names (the card's order of the records within a tile is any)."""
     _check(rid, lo, frac, g, meta)
-    tile_rows = tile_rows_of(meta)
-    P, T = rid.shape[0], -(-total_rows // tile_rows)
-    plan = launch_prepass(rid, lo, frac, g, total_rows, meta, tile_rows,
-                          CHUNK_PAIRS)[24 * P:].view(torch.int32)
+    P, T = rid.shape[0], -(-total_rows // tile_rows_of(meta))
+    plan = launch_prepass(rid, lo, frac, g, total_rows, meta)[24 * P:].view(torch.int32)
     return dict(counts=plan[:T].long(), offsets=plan[T:2 * T + 1].long(),
                 chunk_tile=plan[4 * T + 4:4 * T + 4 + int(plan[4 * T + 2])].long())
 
 
-def launch_kernel(rid, lo, frac, g, total_rows, meta, tile_bytes=TILE_BYTES,
-                  chunk_pairs=CHUNK_PAIRS):
+def launch_kernel(rid, lo, frac, g, total_rows, meta):
     """Launch K2 on CUDA tensors -> [total_rows, 2 * row_cells] f32: the
-    pre-pass sorts the pairs into tiles of rows that fit `tile_bytes` of
+    pre-pass sorts the pairs into tiles of rows that fit TILE_BYTES of
     shared memory, and persistent blocks accumulate each chunk of at most
-    `chunk_pairs` pairs in shared memory and write its tile."""
+    CHUNK_PAIRS pairs in shared memory and write its tile."""
     _check(rid, lo, frac, g, meta)
     if not rid.is_cuda:
         raise ValueError("launch_kernel needs CUDA tensors")
@@ -204,13 +199,13 @@ def launch_kernel(rid, lo, frac, g, total_rows, meta, tile_bytes=TILE_BYTES,
     if total_rows == 0:
         return grad
     P = rid.shape[0]
-    tile_rows = tile_rows_of(meta, tile_bytes)
-    scratch = _scratch(P, total_rows, tile_rows, chunk_pairs, rid.device)
+    tile_rows = tile_rows_of(meta)
+    scratch = _scratch(P, total_rows, tile_rows, rid.device)
     ops = [t.contiguous() for t in (rid, lo, frac, g)]
     _, launch = _lib()
     with torch.cuda.device(rid.device):
         err = launch(*[t.data_ptr() for t in ops], grad.data_ptr(), scratch.data_ptr(), P,
-                     total_rows, tile_rows, chunk_pairs, meta.halo, meta.row_cells,
+                     total_rows, tile_rows, CHUNK_PAIRS, meta.halo, meta.row_cells,
                      torch.cuda.current_stream(rid.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"block_table_grad kernel launch failed: cudaError {err}")

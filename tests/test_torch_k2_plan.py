@@ -13,6 +13,7 @@ from test_torch_scatter import ATOL, _inputs, _metas, _pairs_from_jax
 
 from enerf_tpu.ops import scatter_accum as jsa
 from enerf_torch.ops import scatter_accum as tsa
+from enerf_torch.ops import blockgrid as tbg
 from enerf_torch.ops.blockgrid import BlockGridMeta, _trilinear_weights
 
 
@@ -107,7 +108,6 @@ def test_plan_holds_every_live_pair_once(name):
     plan = tsa.table_grad_plan(rid, g, T, tile_rows, chunk_pairs)
     tiles = -(-T // tile_rows)
     assert plan.tile_rows == tile_rows and plan.counts.shape == (tiles,)
-    assert torch.equal(plan.tile_of_row, torch.arange(T) // tile_rows)
     # every pair with a non-zero g is in exactly one chunk, every other in none
     listed = torch.cat([plan.order[b:e] for b, e in zip(plan.chunk_begin.tolist(),
                                                         plan.chunk_end.tolist())])
@@ -154,17 +154,54 @@ def test_accumulation_by_plan_matches_jax_reference(name):
 
 
 def test_tile_rows_fit_the_tile_bytes():
-    for block, rows in ((4, 98), (3, 192)):
+    for block, rows in ((4, 98), (3, 192), (1, 1536)):
         meta = BlockGridMeta(num_levels=16, level_dim=2, block=block)
         assert tsa.tile_rows_of(meta) == rows  # 2 * row_cells f32 each, even
         assert rows * 8 * meta.row_cells <= tsa.TILE_BYTES
-    with pytest.raises(ValueError):
-        tsa.tile_rows_of(meta, tile_bytes=1000)
+    with pytest.raises(ValueError):  # rows of 74 KB: not two to a tile
+        tsa.tile_rows_of(BlockGridMeta(num_levels=2, level_dim=2, block=20))
 
 
 def test_prepass_refuses_cpu_tensors():
-    pairs, meta, tile_rows, chunk_pairs = _case("one_row")
+    pairs, meta, _, _ = _case("one_row")
     with pytest.raises(ValueError, match="CUDA"):
-        tsa.launch_prepass(*pairs, meta.total_rows, meta, tile_rows, chunk_pairs)
+        tsa.launch_prepass(*pairs, meta.total_rows, meta)
     with pytest.raises(ValueError, match="CUDA"):
         tsa.device_plan(*pairs, meta.total_rows, meta)
+
+
+@pytest.mark.parametrize("block", [4, 3])
+def test_pair_inputs_list_pairs_level_by_level(block):
+    """pair_inputs' level-major addresses are the sample-major ones of
+    block_address, transposed, bit for bit; out-of-box samples get g = 0."""
+    _, mt = _metas(block)
+    x, g = _inputs(257, mt.num_levels, seed=13, oob=9)
+    xc, g_out = t(np.clip(x, 0.0, 1.0)), t(g)
+    oob = torch.zeros(257, dtype=torch.bool)
+    oob[:9] = True
+    rid, lo, frac, gg = tsa.pair_inputs(xc, g_out, mt, oob)
+    rid_s, lo_s, frac_s = tbg.block_address(xc, mt)
+    rid_s = rid_s + torch.as_tensor(mt.offsets[:-1])[None, :]
+    L = mt.num_levels
+    assert torch.equal(rid, rid_s.t().reshape(-1).to(torch.int32))
+    assert torch.equal(lo, lo_s.transpose(0, 1).reshape(-1, 3).to(torch.int32))
+    assert torch.equal(frac, frac_s.transpose(0, 1).reshape(-1, 3))
+    want = g_out.reshape(257, L, 2).masked_fill(oob[:, None, None], 0.0)
+    assert torch.equal(gg, want.transpose(0, 1).reshape(-1, 2))
+
+
+def test_bench_table_grad_runs_on_cpu(tmp_path):
+    """The table backward benchmark's control flow, with K2's plain version
+    (the CPU), on uniform samples and on a saved set of samples."""
+    from enerf_torch.tools import bench_table_grad
+    x, g = _inputs(40, 16, seed=14, oob=0)
+    oob = torch.zeros(40, dtype=torch.bool)
+    oob[:30] = True
+    path = tmp_path / "step1.pt"
+    torch.save([dict(x=t(x), g_out=t(g), oob=oob)], path)
+    res = bench_table_grad.run(24, str(path), torch.device("cpu"))
+    assert [r["name"] for r in res] == ["uniform blk4", "uniform blk3", "K2 path render 1 blk4",
+                                        "K2 path render 1 blk4, no live pair"]
+    assert [(r["pairs"], r["live"]) for r in res] == [(384, 384), (384, 384), (640, 160),
+                                                      (640, 0)]
+    assert all(r[k] > 0 for r in res for k in ("pair_inputs_ms", "k2_ms", "both_ms"))

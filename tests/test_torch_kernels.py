@@ -94,13 +94,13 @@ def test_bf16_head_padded_widths_and_infinite_sigma_on_card(E):
     torch.testing.assert_close(c_k, c_p, rtol=0, atol=1e-2)
 
 
-def _table_grad_on_card(pairs, meta, **kw):
-    """K2 on the card against the float64 plain version: atomics sum in any
-    order, so per cell within 1e-5 of the sum of the addends' magnitudes
-    (plus 1e-7), and exactly zero where no pair adds.  Returns (K2's
-    gradient, the bound)."""
+def _table_grad_on_card(pairs, meta):
+    """K2 through its entry point on the card against the float64 plain
+    version: atomics sum in any order, so per cell within 1e-5 of the sum
+    of the addends' magnitudes (plus 1e-7), and exactly zero where no pair
+    adds.  Returns (K2's gradient, the bound)."""
     before = scatter_accum.block_table_grad.launches
-    got = scatter_accum.launch_kernel(*pairs, meta.total_rows, meta, **kw)
+    got = scatter_accum.block_table_grad(*pairs, meta.total_rows, meta)
     torch.cuda.synchronize()
     assert scatter_accum.block_table_grad.launches == before + 1
     rid, lo, frac, gg = pairs
@@ -125,9 +125,6 @@ def test_table_grad_kernel_matches_twin_on_card(block):
     x = torch.rand(B, 3, device="cuda", generator=g)
     g_out = torch.randn(B, 32, device="cuda", generator=g)
     pairs = scatter_accum.pair_inputs(x, g_out, meta)
-    before = scatter_accum.block_table_grad.launches
-    scatter_accum.block_table_grad(*pairs, meta.total_rows, meta)  # the entry point
-    assert scatter_accum.block_table_grad.launches == before + 1
     _, bound = _table_grad_on_card(pairs, meta)
     ref64 = scatter_accum.block_table_grad_reference(*pairs, meta.total_rows, meta,
                                                      dtype=torch.float64)
@@ -163,13 +160,13 @@ def test_table_grad_kernel_edge_cases_on_card(case, block):
         pytest.skip("needs a CUDA device (K2 has no CPU mode)")
     gen = torch.Generator(device="cuda").manual_seed(3)
     meta = BlockGridMeta(num_levels=16, level_dim=2, block=block)
-    T, kw = meta.total_rows, {}
+    T = meta.total_rows
     if case == "one_row":  # ~25 chunks of one tile, every add on one row
         pairs = _pairs_on_rows(torch.full((100_000,), 300, device="cuda"), meta, gen)
-    elif case == "more_chunks_than_blocks":  # ~17,500 chunks of 64 pairs, ~2 blocks per SM
+    elif case == "more_chunks_than_blocks":  # >= 1 chunk a tile: ~1,000 chunks, ~2 blocks an SM
         x = torch.rand(70_000, 3, device="cuda", generator=gen)
         g_out = torch.randn(70_000, 32, device="cuda", generator=gen)
-        pairs, kw = scatter_accum.pair_inputs(x, g_out, meta), dict(chunk_pairs=64)
+        pairs = scatter_accum.pair_inputs(x, g_out, meta)
     elif case == "zero_pairs":
         pairs = _pairs_on_rows(torch.zeros(0, device="cuda"), meta, gen)
     elif case == "all_out_of_box":
@@ -181,7 +178,7 @@ def test_table_grad_kernel_edge_cases_on_card(case, block):
         assert T % scatter_accum.tile_rows_of(meta)
         rows = torch.randint(T - 40, T, (50_000,), device="cuda", generator=gen)
         pairs = _pairs_on_rows(rows, meta, gen)
-    got, _ = _table_grad_on_card(pairs, meta, **kw)
+    got, _ = _table_grad_on_card(pairs, meta)
     if case in ("zero_pairs", "all_out_of_box"):
         assert torch.equal(got, torch.zeros_like(got))
     else:
