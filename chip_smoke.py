@@ -51,20 +51,44 @@ Phases (one line each; any failure exits non-zero before the result lines):
      the trainer's mark_untrained_grid from the first frame camera (its
      share of marked cells > 0 and equal to a direct call's), 4 fixed-step
      steps with remat, 4 march steps
-     through K1; loss_frames finite at every step.
+     through K1; loss_frames finite at every step;
+ 11. esim fixture: a 480 x 640, 6-frame esim directory written by the
+     port's save_esim_dataset under build/chip_smoke_esim/ (images/,
+     images_corrupted/ with seeded noise, events/, poses_all.txt,
+     poses_bounds.npy), its seconds; the PNGs read back by the port's
+     reader bit-equal to the uint8 written, its decode rate on them and on
+     a frame filtered with Paeth on every row;
+ 12. frames mode at the published width: configs/spiral1/spiral1_nerf.txt
+     as published (hash grid 16 x 2, 480 x 640, 30,096 rays x 512 steps)
+     on the fixture, with one val index and one 16-step epoch: steps/s,
+     peak memory, the checkpoint's and the evaluation's seconds (one
+     480 x 640 view), PSNR; finite losses and PSNR; one more step split
+     into its parts;
+ 13. events + frames from the esim loader at the published width:
+     configs/shakeCarpet1/shakeCarpet1_enerfBoth.txt (images_corrupted,
+     the scene's pose offset), 8 steps: steps/s and peak memory; a
+     torch.OutOfMemoryError as published is printed as the config's result
+     and the phase reruns with --remat_fixed 1;
+ 14. frames mode on the march: --ff -O --events 0 --error_map on the
+     synthetic scene, 8 steps with an occupancy update: K1 launched by
+     the frames step, finite losses, an error map that changed.
 Then a `{"kernels": [...]}` line, the card line, and last the result line
 `{"ok": true, "device": {...}}`.
 """
 
+import gc
 import glob
 import itertools
 import json
 import math
 import os
+import shutil
+import struct
 import subprocess
 import sys
 import time
 import traceback
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1084,6 +1108,284 @@ def phase_march_warmup(workspace):
                              f"a direct mark_untrained_grid call {one_cam}")
 
 
+ESIM_H, ESIM_W = 480, 640  # the published esim configs' frame size
+ESIM_FRAMES = 6  # frames are data scale: a train and a val index need 3
+
+
+def paeth_png(img8):
+    """8-bit gray PNG bytes of img8 with the Paeth filter on every row: the
+    reader's slowest case (byte-serial), as libpng's adaptive filters may
+    choose it on real frames."""
+    import numpy as np
+    from enerf_torch.utils import png
+    a = img8.astype(np.int16)
+    left = np.pad(a, ((0, 0), (1, 0)))[:, :-1]
+    up = np.pad(a, ((1, 0), (0, 0)))[:-1]
+    upleft = np.pad(a, ((1, 0), (1, 0)))[:-1, :-1]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    rows = np.concatenate([np.full((a.shape[0], 1), 4), (a - pred) % 256], axis=1)
+    header = struct.pack(">IIBBBBB", a.shape[1], a.shape[0], 8, 0, 0, 0, 0)
+    return (png._SIGNATURE + png._chunk(b"IHDR", header)
+            + png._chunk(b"IDAT", zlib.compress(rows.astype(np.uint8).tobytes()))
+            + png._chunk(b"IEND", b""))
+
+
+def phase_esim_fixture(root):
+    """A 480 x 640 esim directory from the port's writer; the PNGs read back
+    bit-equal.  Returns (datadir, the same directory as ShakeCarpet1), the
+    second name selecting the scene's pose offset."""
+    import numpy as np
+    from enerf_torch.data import provider, synthetic
+    from enerf_torch.utils import png
+
+    shutil.rmtree(root, ignore_errors=True)
+    datadir = os.path.join(root, "spiral1")
+    t0 = time.time()
+    data = synthetic.simulate_events(H=ESIM_H, W=ESIM_W, n_frames=ESIM_FRAMES,
+                                     workers=ESIM_FRAMES)
+    t_sim = time.time() - t0
+    provider.save_esim_dataset(data, datadir, scale=0.3)
+    clean = [(np.clip(f[..., 0], 0, 1) * 255).astype(np.uint8) for f in data["frames"]]
+    rng = np.random.default_rng(0)
+    corrupted = [np.clip(im + rng.normal(0, 12.0, im.shape), 0, 255).astype(np.uint8)
+                 for im in clean]
+    os.makedirs(os.path.join(datadir, "images_corrupted"))
+    for i, im in enumerate(corrupted):
+        png.write_png(os.path.join(datadir, "images_corrupted", f"{i:06d}.png"), im)
+    written = clean + corrupted
+    os.symlink("spiral1", os.path.join(root, "ShakeCarpet1"))
+    secs = time.time() - t0
+    paths = [os.path.join(datadir, sub, f"{i:06d}.png")
+             for sub in ("images", "images_corrupted") for i in range(ESIM_FRAMES)]
+    t0 = time.time()
+    back = [png.read_png(p) for p in paths]
+    t_dec = time.time() - t0
+    same = all(b.dtype == np.uint8 and np.array_equal(b, w) for b, w in zip(back, written))
+    mb = sum(b.nbytes for b in back) / 1e6
+    blob = paeth_png(written[0])
+    t0 = time.time()
+    paeth = png.decode_png(blob)
+    t_paeth = time.time() - t0
+    same = same and np.array_equal(paeth, written[0])
+    print(f"[esim] fixture {data['H']}x{data['W']}, {ESIM_FRAMES} frames, "
+          f"{len(data['events'])} events: {secs:.2f} s ({t_sim:.2f} s simulating in "
+          f"{ESIM_FRAMES} processes); read back {len(back)} PNGs "
+          f"{'bit-equal' if same else 'DIFFERENT'} to the uint8 written: {mb:.2f} MB of pixels "
+          f"in {t_dec:.3f} s = {mb / t_dec:.1f} MB/s (filter 0 rows); one frame with Paeth on "
+          f"every row {written[0].nbytes / 1e6 / t_paeth:.2f} MB/s ({t_paeth:.3f} s)")
+    if not same:
+        raise AssertionError("the port's PNG reader did not give back the frames written")
+    return datadir, os.path.join(root, "ShakeCarpet1")
+
+
+def esim_config(config, datadir, workspace, *extra):
+    """A published esim config as published, on the fixture, with one val
+    index and evaluation after the (one) epoch."""
+    from enerf_torch.config import build_config
+    return build_config([
+        "--config", os.path.join(REPO, "configs", config), "--datadir", datadir,
+        "--outdir", workspace, "--val_idxs", "1", "--eval_interval", "1", "--log_every", "1",
+        *extra])
+
+
+def esim_run(cfg, workspace, steps, evaluate):
+    """One epoch of `steps` steps through the entry points of
+    `python -m enerf_torch` on the card: (trainer, train provider, data
+    load seconds, peak memory GiB)."""
+    import torch
+    from enerf_torch.__main__ import get_select_frames
+    from enerf_torch.data.provider import make_providers
+    from enerf_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, workspace=workspace)
+    t0 = time.time()
+    train, val = make_providers(cfg, get_select_frames(cfg))
+    load = time.time() - t0
+    train.steps_per_epoch = steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train(train, val if evaluate else None, max_epoch=1)
+    torch.cuda.synchronize()
+    return trainer, train, load, torch.cuda.max_memory_allocated() / 2**30
+
+
+def esim_shape_line(trainer, train, cfg):
+    meta, ss = trainer.static.grid_meta, trainer.ss
+    rays = train.num_rays  # the frame render; with events the pair's two renders too
+    if cfg.events:
+        rays = 2 * train.batch_size_evs + (train.num_rays if train.frames is not None else 0)
+    return (f"{trainer.static.encoding} {meta.num_levels}x{meta.level_dim}, "
+            f"2^{meta.log2_hashmap_size}, {trainer.static.compute_dtype}, {train.H}x{train.W}, "
+            f"{rays} rays x {ss.num_steps} steps = {rays * ss.num_steps} samples a step, "
+            f"remat_fixed {ss.remat_fixed}")
+
+
+def phase_esim_frames(datadir, workspace):
+    """configs/spiral1/spiral1_nerf.txt as published (frames mode, hash
+    grid, 480 x 640, 30,096 rays x 512 steps) on the fixture: one 16-step
+    epoch with a checkpoint and the evaluation of one view."""
+    import numpy as np
+
+    steps = 16
+    cfg = esim_config("spiral1/spiral1_nerf.txt", datadir, workspace, "--iters", str(steps))
+    trainer, train, load, peak = esim_run(cfg, workspace, steps, evaluate=True)
+    secs, res = trainer.epoch_seconds, trainer.last_eval
+    losses = [aux["loss"] for _, aux in trainer.history]
+    print(f"[esim-frames] spiral1_nerf: {esim_shape_line(trainer, train, cfg)}; "
+          f"{train.images.shape[0]} train frames, data loaded in {load:.2f} s")
+    print(f"[esim-frames] {steps} steps {secs['steps']:.3f} s = "
+          f"{steps / secs['steps']:.4f} steps/s (the first included); peak memory {peak:.2f} GiB; "
+          f"checkpoint {secs.get('checkpoint', float('nan')):.3f} s; evaluation of one "
+          f"{train.H}x{train.W} view {secs.get('evaluate', float('nan')):.3f} s; "
+          f"psnr {res.get('psnr')} ssim {res.get('ssim')}; losses "
+          + ", ".join(f"{x:.5f}" for x in losses))
+    if not (len(losses) == steps and np.isfinite(losses).all()):
+        raise AssertionError(f"spiral1_nerf losses not all finite: {losses}")
+    if not np.isfinite(res.get("psnr", np.nan)):
+        raise AssertionError(f"spiral1_nerf evaluation gave no finite psnr: {res}")
+    phase_frames_breakdown(trainer, train)
+
+
+def device_busy(fn):
+    """Host ms of one synchronized call of fn, and {kernel: device ms} of a
+    second call from torch.profiler (CUDA activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0))
+        if dev_us > 0 and ev.key and not ev.key.startswith("ProfilerStep"):
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3
+    return wall, kernels
+
+
+def phase_frames_breakdown(trainer, train):
+    """Host-clock split of one more frames-mode step, each part ending in a
+    synchronize; then the device's busy share of a whole step."""
+    import torch
+    from enerf_torch.train.step import _render, draw_noise, train_step_frames
+
+    ss, state = trainer.ss, trainer.state
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = (time.time() - t0) * 1e3
+        return out
+
+    batch = timed("batch", lambda: train.train_step_batch(trainer.generator))
+    N = batch["rays_o"].shape[0]
+    noise = draw_noise(ss, 0, trainer.generator, trainer.device, n_frames=N)
+    state.zero_grad()
+    out = timed("frame render (forward)", lambda: _render(
+        state.params, ss, batch["rays_o"], batch["rays_d"], noise["bg_frames"],
+        noise["jitter_frames"], None))
+    timed("loss + backward",
+          lambda: ((out["image"] - batch["images"]) ** 2).mean().backward())
+    timed("adam + ema", state.apply_updates)
+    print("[breakdown] frames mode at the published width, one step, ms (host clock, "
+          "synchronized): " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f"; {N * ss.num_steps} samples")
+    wall, kernels = device_busy(lambda: train_step_frames(
+        state, train.train_step_batch(trainer.generator), ss, None, generator=trainer.generator))
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[breakdown] one whole step {wall:.1f} ms (host clock); the kernels of the next "
+          f"step {busy:.1f} ms on the device (torch.profiler), {busy / wall:.1%} of the host's "
+          f"step time; {len(kernels)} kernels, the longest: "
+          + "; ".join(f"{k[:70]} {v:.1f} ms" for k, v in top))
+
+
+def phase_esim_events(datadir, workspace):
+    """configs/shakeCarpet1/shakeCarpet1_enerfBoth.txt (events + frames,
+    images_corrupted) as published on the fixture, 8 steps; if it does not
+    fit the card, the OutOfMemoryError is its result and the phase reruns
+    with --remat_fixed 1."""
+    import numpy as np
+    import torch
+
+    steps = 8
+    name = "shakeCarpet1/shakeCarpet1_enerfBoth.txt"
+    for label, extra in (("as published", ()), ("with --remat_fixed 1", ("--remat_fixed", "1"))):
+        cfg = esim_config(name, datadir, workspace, "--iters", str(steps), *extra)
+        try:
+            trainer, train, load, peak = esim_run(cfg, workspace, steps, evaluate=False)
+            break
+        except torch.OutOfMemoryError as e:
+            if extra:
+                raise
+            print(f"[esim-events] shakeCarpet1_enerfBoth {label}: torch.OutOfMemoryError at "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated: "
+                  f"{str(e).splitlines()[0]}")
+        gc.collect()  # the failed run's tensors went with the exception
+        torch.cuda.empty_cache()
+    secs, hist = trainer.epoch_seconds, trainer.history
+    print(f"[esim-events] shakeCarpet1_enerfBoth {label}: {esim_shape_line(trainer, train, cfg)}; "
+          f"{int(train.chains.xs.shape[0])} chained events, {train.frames.shape[0]} corrupted "
+          f"train frames, data loaded in {load:.2f} s")
+    print(f"[esim-events] {steps} steps {secs['steps']:.3f} s = "
+          f"{steps / secs['steps']:.4f} steps/s (the first included); peak memory "
+          f"{peak:.2f} GiB; losses " + ", ".join(
+              f"{aux['loss']:.5f} (evs {aux['loss_evs']:.5f}, frames {aux['loss_frames']:.5f})"
+              for _, aux in hist))
+    terms = [[aux[k] for k in ("loss", "loss_evs", "loss_frames")] for _, aux in hist]
+    if not (len(terms) == steps and np.isfinite(terms).all()):
+        raise AssertionError(f"shakeCarpet1_enerfBoth losses not all finite: {hist}")
+
+
+def phase_frames_march(workspace):
+    """--ff -O --events 0 --error_map on the synthetic scene, 8 steps with
+    the occupancy update before step 0: train_step_frames through the march
+    and K1, the error map updated after each step."""
+    import numpy as np
+    import torch
+    from enerf_torch.data.provider import make_providers
+    from enerf_torch.ops import fused_mlp
+    from enerf_torch.render.march import march_rays
+    from enerf_torch.train.trainer import Trainer
+
+    cfg = smoke_config(workspace, "--events", "0", "--event_only", "0", "--error_map",
+                       "--log_every", "1")
+    trainer = Trainer(cfg, workspace=workspace)
+    train, _ = make_providers(cfg)
+    train.steps_per_epoch = 8
+    before = train.error_map.clone()
+    fused_mlp.fused_field_head.launches = 0
+    march_rays.host_syncs = 0
+    t0 = time.time()
+    trainer.train(train, max_epoch=1)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fused_mlp.fused_field_head.launches
+    changed = int((train.error_map != before).sum())
+    lf = [aux["loss_frames"] for _, aux in trainer.history]
+    print(f"[frames-march] 8 steps in {wall:.2f} s (a checkpoint included), "
+          f"{train.num_rays} rays a step: loss_frames per step {[f'{x:.4e}' for x in lf]}; "
+          f"K1 launches {launches}; march host syncs {march_rays.host_syncs}; occupancy updates "
+          f"{trainer.occupancy.iter_density}; error map cells changed {changed} of "
+          f"{train.error_map.numel()}")
+    if not (len(lf) == 8 and np.isfinite(lf).all()):
+        raise AssertionError(f"frames-mode losses not finite at every step: {lf}")
+    if launches == 0 or changed == 0 or trainer.occupancy.iter_density != 1:
+        raise AssertionError(f"frames step on the march: K1 launches {launches}, error map "
+                             f"cells changed {changed}, occupancy updates "
+                             f"{trainer.occupancy.iter_density}")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -1124,6 +1426,14 @@ def main():
         phase_default_breakdown(trainer, train)
         del trainer, train
         phase_march_warmup(os.path.join(REPO, "build", "chip_smoke_warmup"))
+        datadir, carpet = phase_esim_fixture(os.path.join(REPO, "build", "chip_smoke_esim"))
+        phase_esim_frames(datadir, os.path.join(REPO, "build", "chip_smoke_spiral1"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_esim_events(carpet, os.path.join(REPO, "build", "chip_smoke_carpet"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        k1_frames = phase_frames_march(os.path.join(REPO, "build", "chip_smoke_frames_march"))
     except Exception:  # every phase's failure ends the run non-zero
         traceback.print_exc()
         print("[smoke] FAIL")
@@ -1138,7 +1448,7 @@ def main():
         "bound_by": bf["bound_by"], "library_ms": None,
         "share_of_bound": bf["share_of_bound"], "kernel_ms": bf["kernel_ms"],
         "pack_ms": bf["pack_ms"], "host_ms": bf["host_ms"], "differ_share": bf["differ_share"],
-        "float32": res["float32"],
+        "float32": res["float32"], "launches_frames_march": k1_frames,
     }, dict({
         "name": "block_table_grad", "route": "cuda",
         "source": "enerf_torch/csrc/block_table_grad.cu",

@@ -283,26 +283,23 @@ class Config:
 
 # TPU variants of one function or TPU dispatch machinery: configs keep
 # parsing, the port runs its single implementation and logs that it
-# ignored them (train/trainer.py).
+# ignored them (train/trainer.py).  position_grads acts only together with
+# segsum_grad.
 TPU_ONLY = ("fuse_steps", "mesh_shape", "multihost", "bf16_gather",
-            "segsum_grad", "mxu_grad", "mxu_rows", "coalesce_rounds")
+            "segsum_grad", "mxu_grad", "mxu_rows", "coalesce_rounds", "position_grads")
 
 
 def check_supported(cfg):
     """Raise NotImplementedError for options the port cannot run yet."""
     missing = []
-    if not cfg.events:
-        missing.append("events=0 (frames mode)")
     if cfg.encoding in ("frequency", "none"):
         missing.append(f"encoding={cfg.encoding}")
     if cfg.bg_radius > 0:
         missing.append("bg_radius > 0 (background net)")
-    if cfg.mode != "synthetic":
-        missing.append(f"mode={cfg.mode} (dataset loaders)")
+    if cfg.mode not in ("synthetic", "esim"):
+        missing.append(f"mode={cfg.mode} (the H5 event loaders)")
     if cfg.rand_pose >= 0:
         missing.append("rand_pose (CLIP step)")
-    if cfg.error_map:
-        missing.append("error_map")
     if missing:
         raise NotImplementedError(
             "enerf_torch does not support yet: " + ", ".join(missing))

@@ -5,6 +5,8 @@ Counterpart of enerf_tpu/data/poses.py (reference pose_utils.py:138-160).
 own copy) runs once when a dataset is built; `interp_pose_device` (slerp +
 cubic Hermite on tensors) computes poses per batch instead, for
 precompute_evs_poses=0 and for the no-event pair's random times.
+`get_hom_trafos` and `nerf_matrix_to_ngp` are the esim loader's pose
+conventions (copies of the JAX package's numpy functions).
 """
 
 import numpy as np
@@ -34,6 +36,27 @@ def make_pose_interpolator(ts, poses):
         return out
 
     return query
+
+
+def get_hom_trafos(rots, trans):
+    """[N, 3, 3] + [N, 3] -> [N, 4, 4] homogeneous c2w (pose_utils.py)."""
+    rots, trans = np.asarray(rots), np.asarray(trans)
+    out = np.tile(np.eye(4), (rots.shape[0], 1, 1))
+    out[:, :3, :3] = rots
+    out[:, :3, 3] = trans
+    return out
+
+
+def nerf_matrix_to_ngp(pose, scale=0.33, offset=(0, 0, 0)):
+    """rub (OpenGL / NeRF) c2w -> rdf (instant-ngp, this repo), scaled
+    (reference pose_utils.py:664-676)."""
+    p = np.asarray(pose, np.float64)
+    return np.array([
+        [p[1, 0], -p[1, 1], -p[1, 2], p[1, 3] * scale + offset[0]],
+        [p[2, 0], -p[2, 1], -p[2, 2], p[2, 3] * scale + offset[1]],
+        [p[0, 0], -p[0, 1], -p[0, 2], p[0, 3] * scale + offset[2]],
+        [0, 0, 0, 1],
+    ], dtype=np.float64)
 
 
 def mat_to_quat_np(rot):

@@ -1,39 +1,352 @@
-"""Dataset providers: event supervision + frame views, device-resident.
+"""Dataset providers: the esim on-disk format, event supervision and frame
+supervision, device-resident.
 
-Counterpart of enerf_tpu/data/provider.py (reference nerf/provider.py).
-This port has the synthetic branch of `make_providers`, the
-`EventProvider` (per-event poses precomputed on the host, or interpolated
-on the device per batch with precompute_evs_poses=0), its no-event pairs
-(negative_event_sampling), its frames for the frame term of event_only=0
-(a batch of random pixel rays of one random frame per step), and the
-`FramesProvider` as the source of validation and test views.
+Counterpart of enerf_tpu/data/provider.py (reference nerf/provider.py):
+  - the esim format (`load_esim_dataset`, `save_esim_dataset`, the image
+    sources `resolve_image_dir`, the scene pose offsets, the workspace's
+    transforms JSON), read and written with the port's own PNG codec
+    (utils/png.py), since the card has no OpenCV;
+  - `FramesProvider`: frame supervision (num_rays random pixels of one
+    random frame per step, optionally weighted by an error map), and the
+    source of validation and test views;
+  - `EventProvider` (per-event poses precomputed on the host, or
+    interpolated on the device per batch with precompute_evs_poses=0), its
+    no-event pairs (negative_event_sampling) and its frames for the frame
+    term of event_only=0;
+  - `make_providers` for mode=synthetic and mode=esim.
 Everything a step samples lives on the provider's device, and every draw
 comes from the caller's torch.Generator, so a batch costs no host-device
-transfer and no sync.
+transfer and no sync.  The tumvie / eds loaders and rand_pose batches are
+not ported.
 """
+
+import glob
+import json
+import os
 
 import numpy as np
 import torch
+from scipy.spatial.transform import Rotation as R
 
 from enerf_torch.backend import resolve_device
 from enerf_torch.data import synthetic
 from enerf_torch.data.events import build_event_chains, sample_event_batch
-from enerf_torch.data.poses import interp_pose_device, make_pose_interpolator, mat_to_quat_np
+from enerf_torch.data.poses import (
+    get_hom_trafos, interp_pose_device, make_pose_interpolator, mat_to_quat_np,
+    nerf_matrix_to_ngp,
+)
 from enerf_torch.data.rays import get_event_rays, get_rays_sampled
+from enerf_torch.utils.png import read_png, resize_area, write_png
+
+
+# ----------------------------------------------------------------------------
+# pose conventions (reference pose_utils.py:250-262, 664-676)
+
+
+def rub_from_rdf(poses):
+    """[N, 3or4, >=4]: negate the y and z basis columns (an involution)."""
+    p = np.array(poses, np.float64, copy=True)
+    p[:, :3, 1] *= -1
+    p[:, :3, 2] *= -1
+    return p
+
+
+def ngp_from_raw_rdf(pose_rdf, scale):
+    """The esim chain: raw rdf c2w -> rub -> nerf_matrix_to_ngp."""
+    return nerf_matrix_to_ngp(rub_from_rdf(pose_rdf[None])[0], scale=scale)
+
+
+def raw_rdf_from_ngp(pose_ngp, scale):
+    """Inverse of ngp_from_raw_rdf (the dataset writer's)."""
+    p = np.asarray(pose_ngp, np.float64)
+    rub = np.eye(4)
+    # nerf_matrix_to_ngp took rub rows (1, 2, 0) to ngp rows (0, 1, 2)
+    for src, dst in ((0, 1), (1, 2), (2, 0)):
+        rub[dst, :] = p[src, 0], -p[src, 1], -p[src, 2], p[src, 3] / scale
+    return rub_from_rdf(rub[None])[0]
+
+
+# ----------------------------------------------------------------------------
+# the esim on-disk format: loader and writer
+
+
+def resolve_image_dir(datadir, mode, e2vid=0, images_corrupted=False, default_dir=None):
+    """The image source (reference provider.py:487-545, 731-735): with
+    e2vid N the E2VID reconstructions (e2vids/e2vid_upN_*/e2calib*/), with
+    images_corrupted the images_corrupted/ folder (training only), else
+    `default_dir`.  Returns (dir, kind), kind in {'clean', 'e2vid',
+    'corrupted'}."""
+    if e2vid:
+        pats = {
+            "esim": f"e2vids/e2vid_up{e2vid}_*/e2calib/",
+            "eds": f"e2vids/left/e2vid_up{e2vid}_*/e2calib_undistorted/",
+            "tumvie": f"e2vids/e2vid_up{e2vid}_*/e2calib_undistorted/",
+        }
+        pat = pats.get(mode, pats["esim"])
+        hits = sorted(glob.glob(os.path.join(datadir, pat)))
+        if not hits:
+            raise FileNotFoundError(f"--e2vid {e2vid}: no reconstruction dir matching {pat} "
+                                    f"under {datadir}")
+        return hits[0], "e2vid"
+    if images_corrupted:
+        d = os.path.join(datadir, "images_corrupted")
+        if not os.path.isdir(d):
+            raise FileNotFoundError(f"images_corrupted=1 but {d} is missing")
+        return d, "corrupted"
+    return default_dir, "clean"
+
+
+def read_image(path, out_dim_color, downscale=1):
+    """One PNG -> [H, W, C] float32 (8-bit images in [0, 1]), as the JAX
+    package's cv2 reader gives it: RGB (alpha dropped, gray repeated), an
+    INTER_AREA downscale, and luma when out_dim_color is 1.  Anything but a
+    PNG raises, naming the file."""
+    if not path.lower().endswith(".png"):
+        raise ValueError(f"{path}: the port reads PNG images only")
+    im = read_png(path)
+    im = im[..., 2::-1] if im.ndim == 3 else im[..., None].repeat(3, -1)
+    if downscale > 1:
+        im = resize_area(im, downscale)
+    im = im.astype(np.float32) / 255.0
+    if out_dim_color == 1:
+        im = (im @ np.asarray([0.299, 0.587, 0.114], np.float32))[..., None]
+    return im
+
+
+def _load_image_stack(imgdir, out_dim_color, downscale, expect=None):
+    """The sorted png / jpg files of `imgdir` -> [F, H, W, C] float32."""
+    paths = sorted(glob.glob(os.path.join(imgdir, "*.png"))
+                   + glob.glob(os.path.join(imgdir, "*.jpg")))
+    if not paths:
+        raise FileNotFoundError(f"no images in {imgdir}")
+    if expect is not None and len(paths) != expect:
+        raise ValueError(f"{imgdir}: {len(paths)} images but {expect} timestamps — the "
+                         "alternate image source must align with the frame stamps")
+    return np.stack([read_image(p, out_dim_color, downscale) for p in paths])
+
+
+def load_esim_dataset(datadir, scale=0.33, out_dim_color=1, downscale=1, e2vid=0,
+                      images_corrupted=False):
+    """An esim-format directory -> dict(images [F, H, W, C] float32,
+    tss_imgs_ns [F], poses [F, 4, 4] (the final ngp frame), intrinsics
+    (fx, fy, cx, cy), hf_ts [K], hf_poses [K, 4, 4], events [M, 4]
+    (x, y, ts_ns, pol +-1), event_frame_ids [M], H, W).  With e2vid the
+    images are the reconstructions (the reference evaluates against them
+    too); with images_corrupted a separate `train_images` is returned and
+    `images` stay clean (the reference trains on the corrupted folder
+    only)."""
+    pose_files = glob.glob(os.path.join(datadir, "*poses_all*.txt"))
+    if not pose_files:
+        raise FileNotFoundError(f"no *poses_all*.txt in {datadir}")
+    quatlist = np.loadtxt(pose_files[0], skiprows=1)
+    if quatlist.ndim != 2 or quatlist.shape[1] != 8:
+        raise ValueError(f"{pose_files[0]}: rows must be ts_ns px py pz qx qy qz qw")
+    hf_ts = quatlist[:, 0]
+    hf_raw = get_hom_trafos(R.from_quat(quatlist[:, 4:8]).as_matrix(), quatlist[:, 1:4])
+
+    clean_dir = os.path.join(datadir, "images")
+    tss_imgs_ns = np.loadtxt(os.path.join(clean_dir, "image_stamps_ns.txt"))
+    imgdir, kind = resolve_image_dir(datadir, "esim", e2vid, images_corrupted,
+                                     default_dir=clean_dir)
+    train_images = None
+    images = _load_image_stack(imgdir if kind == "e2vid" else clean_dir, out_dim_color,
+                               downscale, expect=len(tss_imgs_ns))
+    if kind == "corrupted":
+        train_images = _load_image_stack(imgdir, out_dim_color, downscale,
+                                         expect=len(tss_imgs_ns))
+    H, W = images.shape[1:3]
+
+    # intrinsics from poses_bounds' hwf (reference load_intrinsics)
+    hwf = np.load(os.path.join(datadir, "poses_bounds.npy"))[0, :15].reshape(3, 5)[:, 4]
+    focal = hwf[2] / downscale
+    intrinsics = (focal, focal, W / 2.0, H / 2.0)
+
+    # raw poses at the image times, then the final frame
+    img_raw = make_pose_interpolator(hf_ts, hf_raw)(np.clip(tss_imgs_ns, hf_ts[0], hf_ts[-1]))
+    img_hom = get_hom_trafos(img_raw[:, :3, :3], img_raw[:, :3, 3])
+    poses = np.stack([ngp_from_raw_rdf(p, scale) for p in img_hom])
+    hf_final = np.stack([ngp_from_raw_rdf(p, scale) for p in hf_raw])
+
+    ev_files = sorted(glob.glob(os.path.join(datadir, "events", "*.npy")))
+    chunks = [np.load(f)[:, :4] for f in ev_files]
+    events = np.concatenate(chunks) if chunks else np.zeros((0, 4))
+    frame_ids = (np.concatenate([np.full(len(c), i, np.int64) for i, c in enumerate(chunks)])
+                 if chunks else np.zeros((0,), np.int64))
+    if events.shape[0] and set(np.unique(events[:, 3])) <= {0.0, 1.0}:
+        events[:, 3] = events[:, 3] * 2.0 - 1.0  # polarity to +-1 (transform_pol)
+
+    out = {"images": images, "tss_imgs_ns": tss_imgs_ns, "poses": poses,
+           "intrinsics": intrinsics, "hf_ts": hf_ts, "hf_poses": hf_final, "events": events,
+           "event_frame_ids": frame_ids, "H": H, "W": W}
+    if train_images is not None:
+        out["train_images"] = train_images
+    return out
+
+
+# The per-scene pose nudges the reference hardcodes after loading
+# (provider.py:611-618, update_poses :705-718): translations in the final
+# ngp frame, applied to the keyframe and the high-frequency poses.
+_SCENE_POSE_OFFSETS = {
+    "11_all_characters": (-1.5, -0.5, -0.75),
+    "00_peanuts_dark": (-1.0, -0.5, -1.0),  # skipped when pp_poses_sphere
+    "ShakeCarpet1": (0.0, 0.0, 0.3),
+}
+
+
+def apply_scene_pose_offset(datadir, data, pp_poses_sphere=False):
+    """The reference's dataset-specific pose offset, in place, keyed on the
+    scene directory's name (peanuts_dark only without the sphere
+    preprocessing)."""
+    name = os.path.basename(os.path.normpath(datadir or ""))
+    off = next((xyz for key, xyz in _SCENE_POSE_OFFSETS.items() if key in name), None)
+    if off is None or (name.startswith("00_peanuts_dark") and pp_poses_sphere):
+        return data
+    for key in ("poses", "hf_poses"):
+        if data.get(key) is not None and len(data[key]):
+            data[key][:, :3, 3] += np.asarray(off)
+    return data
+
+
+def write_transforms_json(workspace, data, split="train"):
+    """The reference's workspace transforms file (provider.py:869-965):
+    intrinsics and each frame's c2w, for interchange with its tooling."""
+    fx, fy, cx, cy = [float(v) for v in data["intrinsics"]]
+    H, W = int(data["H"]), int(data["W"])
+    iev = data.get("intrinsics_evs", data["intrinsics"])
+    out = {
+        "camera_angle_x": float(2 * np.arctan(W / (2 * fx))),
+        "camera_angle_y": float(2 * np.arctan(H / (2 * fy))),
+        "fl_x": fx, "fl_y": fy,
+        "k1": 0, "k2": 0, "p1": 0, "p2": 0,
+        "cx": cx, "cy": cy, "w": W, "h": H,
+        "h_evs": int(data.get("H_ev", H)), "w_evs": int(data.get("W_ev", W)),
+        "fl_x_evs": float(iev[0]), "fl_y_evs": float(iev[1]),
+        "cx_evs": float(iev[2]), "cy_evs": float(iev[3]),
+        "frames": [
+            {"file_path": f"images/{i:06d}.png",
+             "ts_ns": float(data["tss_imgs_ns"][i]) if "tss_imgs_ns" in data else None,
+             "transform_matrix": np.asarray(p)[:4, :4].tolist()}
+            for i, p in enumerate(data["poses"])
+        ],
+    }
+    os.makedirs(workspace, exist_ok=True)
+    path = os.path.join(workspace, f"transform_{split}.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=2)
+    return path
+
+
+def save_esim_dataset(data, datadir, scale=0.33):
+    """Write the synthetic simulator's output (synthetic.simulate_events) in
+    the reference's esim format: images/ (8-bit gray PNG, written by the
+    port's writer) with image_stamps_ns.txt, poses_all.txt (a raw rdf pose
+    list, 4 per frame), poses_bounds.npy (hwf) and events/ (one .npy of
+    (x, y, ts_ns, pol) per frame interval)."""
+    os.makedirs(os.path.join(datadir, "images"), exist_ok=True)
+    os.makedirs(os.path.join(datadir, "events"), exist_ok=True)
+    H, W = data["H"], data["W"]
+    ts_ns = data["frame_ts"] * 1e9
+    np.savetxt(os.path.join(datadir, "images", "image_stamps_ns.txt"), ts_ns)
+    for i, im in enumerate(data["frames"]):
+        img8 = (np.clip(im[..., 0], 0, 1) * 255).astype(np.uint8)
+        write_png(os.path.join(datadir, "images", f"{i:06d}.png"), img8)
+
+    hf_t = np.linspace(data["frame_ts"][0], data["frame_ts"][-1], 4 * len(ts_ns))
+    rows = []
+    for t in hf_t:
+        raw = raw_rdf_from_ngp(data["pose_fn"](t), scale)
+        rows.append([t * 1e9, *raw[:3, 3], *R.from_matrix(raw[:3, :3]).as_quat()])
+    np.savetxt(os.path.join(datadir, "poses_all.txt"), np.asarray(rows),
+               header="ts_ns px py pz qx qy qz qw")
+
+    pb = np.zeros((max(len(ts_ns), 11), 17))  # the loader reads hwf only
+    base = np.eye(3, 5)
+    base[:, 4] = (H, W, data["intrinsics"][0])
+    pb[:, :15] = base.ravel()
+    np.save(os.path.join(datadir, "poses_bounds.npy"), pb)
+
+    ev = data["events"]
+    for fid in range(len(ts_ns) - 1):
+        t0, t1 = data["frame_ts"][fid], data["frame_ts"][fid + 1]
+        last = fid == len(ts_ns) - 2  # the last interval includes its end
+        m = (ev[:, 2] >= t0) & ((ev[:, 2] <= t1) if last else (ev[:, 2] < t1))
+        chunk = ev[m].copy()
+        chunk[:, 2] *= 1e9  # seconds -> ns
+        np.save(os.path.join(datadir, "events", f"{fid:06d}.npy"), chunk)
+    return datadir
+
+
+# ----------------------------------------------------------------------------
+# providers (the protocol train/trainer.py consumes)
+
+
+def frame_batch(images, poses, intrinsics, H, W, num_rays, generator=None, fi=None,
+                inds=None, error_map=None, inds_coarse=None, jitter=None):
+    """num_rays random pixel rays of one random frame and their ground truth
+    (reference collate provider.py:1057-1104; JAX's _frames_sample_jit):
+    images [F, H*W, C] and poses [F, 4, 4] on one device, optional
+    error_map [F, 128*128].  Returns (fi [1], the get_rays_sampled dict,
+    batch dict(rays_o, rays_d [N, 3], images [N, C])).  The frame index
+    `fi` and the pixel draws (`inds`, or with the error map `inds_coarse`
+    and `jitter`) come from `generator` unless handed in; index_select keeps
+    the draw on the device."""
+    if fi is None:
+        fi = torch.randint(0, images.shape[0], (1,), device=images.device, generator=generator)
+    emap = None if error_map is None else error_map.index_select(0, fi)[0]
+    rays = get_rays_sampled(poses.index_select(0, fi)[0], intrinsics, H, W, num_rays, generator,
+                            inds, error_map=emap, inds_coarse=inds_coarse, jitter=jitter)
+    batch = {"rays_o": rays["rays_o"], "rays_d": rays["rays_d"],
+             "images": images.index_select(0, fi)[0][rays["inds"]]}
+    return fi, rays, batch
 
 
 class FramesProvider:
-    """Frame views (reference NeRFDataset); the port uses it for val and
-    test views."""
+    """Frame supervision (reference NeRFDataset), with optional
+    error-map-weighted pixel sampling (utils.py:134-156, 611-632), and the
+    source of validation and test views.  `stereo_views` (the event views
+    of stereo rigs) are not ported and stay None."""
 
-    def __init__(self, images, poses, intrinsics):
-        self.poses = np.asarray(poses, np.float32)
-        self.intrinsics = intrinsics
+    def __init__(self, images, poses, intrinsics, num_rays=4096, steps_per_epoch=100,
+                 error_map=False, device="cpu"):
+        self.device = torch.device(device)
+        self.stereo_views = None
         self.H, self.W = images.shape[1:3]
+        self.intrinsics = intrinsics
+        self.num_rays = num_rays
+        self.steps_per_epoch = steps_per_epoch
+        self.train_poses = np.asarray(poses)  # the cameras mark_untrained_grid reads
         self._images_np = images
+        # [F, H*W, C] and [F, 4, 4] on the device
+        self.images = torch.as_tensor(
+            np.asarray(images, np.float32).reshape(images.shape[0], -1, images.shape[-1]),
+            device=self.device)
+        self.poses = torch.as_tensor(np.asarray(poses), dtype=torch.float32, device=self.device)
+        self.error_map = (torch.ones(images.shape[0], 128 * 128, device=self.device)
+                          if error_map else None)
+
+    def train_step_batch(self, generator=None, **draws):
+        """One frame batch (see frame_batch; `draws` hands in fi, inds,
+        inds_coarse, jitter)."""
+        fi, rays, batch = frame_batch(self.images, self.poses, self.intrinsics, self.H, self.W,
+                                      self.num_rays, generator, error_map=self.error_map,
+                                      **draws)
+        if self.error_map is not None:
+            self._last_fi, self._last_inds_coarse = fi, rays["inds_coarse"]
+        return batch
+
+    def update_error_map(self, per_ray_loss):
+        """The error map's EMA at the last batch's coarse cells
+        (utils.py:625-632; JAX's _errmap_update_jit)."""
+        if self.error_map is None:
+            return
+        ic = self._last_inds_coarse
+        rows = self._last_fi.expand_as(ic)
+        old = self.error_map[rows, ic]
+        self.error_map.index_put_((rows, ic), 0.1 * old + 0.9 * per_ray_loss.detach())
 
     def val_views(self):
-        return [{"pose": self.poses[i], "intrinsics": self.intrinsics,
+        poses = self.poses.cpu().numpy()
+        return [{"pose": poses[i], "intrinsics": self.intrinsics,
                  "H": self.H, "W": self.W, "gt": self._images_np[i]}
                 for i in range(len(self._images_np))]
 
@@ -161,43 +474,77 @@ class EventProvider:
         return batch
 
     def _frame_rays(self, generator, fi=None, inds=None):
-        """num_rays random pixel rays of one random frame and their ground
-        truth (reference provider.py:427-435): dict(rays_o, rays_d [N, 3],
-        images [N, C]).  `fi` ([1] frame index) and `inds` are drawn
-        unless handed in; index_select keeps the draw on the device."""
-        if fi is None:
-            fi = torch.randint(0, self.frames.shape[0], (1,), device=self.device,
-                               generator=generator)
-        rays = get_rays_sampled(self.frame_poses.index_select(0, fi)[0], self.intrinsics,
-                                self.frame_H, self.frame_W, self.num_rays, generator, inds)
-        return {"rays_o": rays["rays_o"], "rays_d": rays["rays_d"],
-                "images": self.frames.index_select(0, fi)[0][rays["inds"]]}
+        """The frame term's batch (frame_batch): num_rays random pixel rays
+        of one random frame and their ground truth."""
+        return frame_batch(self.frames, self.frame_poses, self.intrinsics, self.frame_H,
+                           self.frame_W, self.num_rays, generator, fi, inds)[2]
 
 
-def make_providers(cfg, device=None):
-    """(train_provider, val_provider) for mode=synthetic: the in-process
-    event simulator (enerf_tpu's make_providers, synthetic branch); with
-    event_only=0 the train provider also serves the simulator's frames.
-    `device=None` is the CUDA device (backend.resolve_device)."""
+def _maybe_write_transforms(cfg, data):
+    """The workspace's transforms snapshot (the reference writes one on every
+    real dataset load, provider.py:484-496); it never stops training."""
+    try:
+        write_transforms_json(os.path.join(cfg.outdir, cfg.expweek, cfg.expname), data)
+    except (OSError, KeyError, ValueError) as e:
+        print(f"[provider] transforms.json snapshot skipped: {e}")
+
+
+def make_providers(cfg, select_frames=None, device=None):
+    """(train_provider, val_provider) from cfg (enerf_tpu's make_providers):
+    mode=synthetic runs the in-process event simulator, mode=esim reads
+    cfg.datadir.  With events=0 the train provider is a FramesProvider,
+    else an EventProvider (serving frames too with event_only=0).
+    `select_frames` is __main__.get_select_frames' dict (train / val
+    indices); without it the config's own indices.  `device=None` is the
+    CUDA device (backend.resolve_device)."""
     device = resolve_device(device)
-    if cfg.mode != "synthetic":
-        raise NotImplementedError(f"enerf_torch: dataset mode {cfg.mode!r}")
+    if select_frames is None:
+        select_frames = {"train_idxs": cfg.train_idxs, "val_idxs": cfg.val_idxs}
+    if cfg.mode == "synthetic":
+        data = synthetic.simulate_events(
+            H=cfg.H, W=cfg.W, C=abs(cfg.C_thres) if cfg.C_thres > 0 else 0.2,
+            n_frames=cfg.syn_frames, rich=int(cfg.syn_rich))
+        images = (data["frames"] if cfg.out_dim_color == 1
+                  else np.repeat(data["frames"], 3, -1))
+        events, hf_ts, hf_poses = data["events"], data["frame_ts"], data["poses"]
+        train_images, poses = images, data["poses"]
+        va_idx = select_frames.get("val_idxs") or list(range(len(images)))
+    elif cfg.mode == "esim":
+        data = load_esim_dataset(
+            cfg.datadir, scale=cfg.scale, out_dim_color=cfg.out_dim_color,
+            downscale=cfg.downscale, e2vid=cfg.e2vid,
+            images_corrupted=bool(cfg.images_corrupted))
+        apply_scene_pose_offset(cfg.datadir, data, pp_poses_sphere=bool(cfg.pp_poses_sphere))
+        _maybe_write_transforms(cfg, data)
+        images, n = data["images"], len(data["images"])
+        events, hf_ts, hf_poses = data["events"], data["hf_ts"], data["hf_poses"]
+        # images_corrupted trains on the corrupted folder and evaluates on
+        # the clean one (reference provider.py:734-735)
+        tr_idx = select_frames.get("train_idxs") or list(range(n))
+        va_idx = select_frames.get("val_idxs") or tr_idx[:1]
+        tr_idx = [i for i in tr_idx if i < n]
+        train_images = data.get("train_images", images)[tr_idx]
+        poses = data["poses"][tr_idx]
+    elif cfg.mode in ("tumvie", "eds"):
+        raise NotImplementedError(
+            f"enerf_torch: the {cfg.mode} loader (ROADMAP.md, open item 1, queue item 3: "
+            "the H5 event, tumvie and eds loaders)")
+    else:
+        raise ValueError(f"unknown dataset mode {cfg.mode!r}")
+    va_idx = [i for i in va_idx if i < len(images)]
+    val = FramesProvider(images[va_idx], data["poses"][va_idx], data["intrinsics"],
+                         num_rays=cfg.num_rays, device=device)
     if not cfg.events:
-        raise NotImplementedError("enerf_torch: frames mode (events=0) training")
-    data = synthetic.simulate_events(
-        H=cfg.H, W=cfg.W, C=abs(cfg.C_thres) if cfg.C_thres > 0 else 0.2,
-        n_frames=cfg.syn_frames, rich=int(cfg.syn_rich))
-    images = (data["frames"] if cfg.out_dim_color == 1
-              else np.repeat(data["frames"], 3, -1))
-    va_idx = [i for i in (cfg.val_idxs or range(len(images))) if i < len(images)]
-    val = FramesProvider(images[va_idx], data["poses"][va_idx], data["intrinsics"])
-    train = EventProvider(
-        data["events"], data["frame_ts"], data["poses"], data["intrinsics"],
-        data["H"], data["W"], batch_size_evs=cfg.batch_size_evs,
-        accumulate_evs=bool(cfg.accumulate_evs), acc_max_num_evs=cfg.acc_max_num_evs,
-        precompute_evs_poses=bool(cfg.precompute_evs_poses),
-        negative_event_sampling=bool(cfg.negative_event_sampling),
-        frames=None if cfg.event_only else images,
-        frame_poses=None if cfg.event_only else data["poses"],
-        num_rays=cfg.num_rays, device=device)
+        train = FramesProvider(train_images, poses, data["intrinsics"], num_rays=cfg.num_rays,
+                               error_map=bool(cfg.error_map), device=device)
+    else:
+        train = EventProvider(
+            events, hf_ts, hf_poses, data["intrinsics"], data["H"], data["W"],
+            batch_size_evs=cfg.batch_size_evs, accumulate_evs=bool(cfg.accumulate_evs),
+            acc_max_num_evs=cfg.acc_max_num_evs,
+            precompute_evs_poses=bool(cfg.precompute_evs_poses),
+            negative_event_sampling=bool(cfg.negative_event_sampling),
+            frames=None if cfg.event_only else train_images,
+            frame_poses=None if cfg.event_only else poses,
+            num_rays=cfg.num_rays, device=device)
     return train, val

@@ -2,8 +2,8 @@
 
 Counterpart of enerf_tpu/data/rays.py (reference utils.py:111-216):
 pinhole back-projection with normalized directions, rays of random pixels
-of one view, and paired-pose rays for events sharing one pixel
-unprojection.  Error-map-weighted pixel sampling is not ported.
+of one view (uniform, or weighted by a 128 x 128 error map), and
+paired-pose rays for events sharing one pixel unprojection.
 """
 
 import torch
@@ -28,17 +28,38 @@ def get_rays_full(pose, intrinsics, H, W):
     return pose[:3, 3].expand_as(rays_d), rays_d
 
 
-def get_rays_sampled(pose, intrinsics, H, W, n_rays, generator=None, inds=None):
-    """Rays of n_rays random pixels of one view (reference utils.py:111-174,
-    uniform sampling): dict(rays_o, rays_d [N, 3], inds [N] int64 flat
-    pixel indices).  `inds` are drawn from `generator` unless handed in."""
+def get_rays_sampled(pose, intrinsics, H, W, n_rays, generator=None, inds=None,
+                     error_map=None, inds_coarse=None, jitter=None):
+    """Rays of n_rays random pixels of one view (reference utils.py:111-174):
+    dict(rays_o, rays_d [N, 3], inds [N] int64 flat pixel indices).
+
+    Uniform pixels, or with `error_map` ([128 * 128] weights) a weighted draw
+    of cells of the 128 x 128 grid, each jittered to a pixel of its cell;
+    the result then also holds `inds_coarse` [N].  The draws (`inds`, or
+    `inds_coarse` and `jitter` [2, N] in [0, 1)) come from `generator`
+    unless handed in."""
     dev = pose.device
-    if inds is None:
+    out = {}
+    if error_map is not None:
+        if inds_coarse is None:
+            inds_coarse = torch.multinomial(error_map + 1e-12, n_rays, replacement=True,
+                                            generator=generator)
+        if jitter is None:
+            jitter = torch.rand(2, n_rays, device=dev, generator=generator)
+        sx, sy = H / 128.0, W / 128.0
+        ix = torch.div(inds_coarse, 128, rounding_mode="floor").to(torch.float32)
+        iy = (inds_coarse % 128).to(torch.float32)
+        ix = (ix * sx + jitter[0] * sx).long().clamp(0, H - 1)
+        iy = (iy * sy + jitter[1] * sy).long().clamp(0, W - 1)
+        inds = ix * W + iy
+        out["inds_coarse"] = inds_coarse
+    elif inds is None:
         inds = torch.randint(0, H * W, (n_rays,), device=dev, generator=generator)
     i = (inds % W).to(torch.float32)
     j = torch.div(inds, W, rounding_mode="floor").to(torch.float32)
     rays_d = pixel_dirs_cam(i, j, intrinsics) @ pose[:3, :3].T
-    return {"rays_o": pose[:3, 3].expand_as(rays_d), "rays_d": rays_d, "inds": inds}
+    out.update(rays_o=pose[:3, 3].expand_as(rays_d), rays_d=rays_d, inds=inds)
+    return out
 
 
 def get_event_rays(xs, ys, c2w_before, c2w_at, intrinsics):

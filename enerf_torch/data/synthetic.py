@@ -13,6 +13,10 @@ readme.md:80, utils/event_utils.py linlog convention).
 Everything is numpy, host-side, cheap at test sizes.
 """
 
+from concurrent.futures import ProcessPoolExecutor
+from functools import partial
+from multiprocessing import get_context
+
 import numpy as np
 
 
@@ -167,7 +171,7 @@ def _lin_log(x, thres=20.0):
 
 
 def simulate_events(H=64, W=64, n_frames=40, C=0.2, radius=2.5, height=0.8,
-                    turns=0.5, fovy_deg=60.0, seed=0, rich=False):
+                    turns=0.5, fovy_deg=60.0, seed=0, rich=False, workers=1):
     """Simulate an event stream from the orbiting camera.
 
     Returns dict with:
@@ -180,15 +184,19 @@ def simulate_events(H=64, W=64, n_frames=40, C=0.2, radius=2.5, height=0.8,
       C: contrast threshold used
 
     Deterministic in its arguments (the same data as enerf_tpu's simulator;
-    this copy keeps no disk cache).
+    this copy keeps no disk cache).  workers > 1 renders the frames in that
+    many spawned processes (the same frames, for large H x W).
     """
     intr = default_intrinsics(H, W, fovy_deg)
     ts = np.linspace(0.0, 1.0, n_frames)
     poses = np.stack([circle_pose(t, radius, height, turns) for t in ts])
-    frames = np.stack(
-        [render_gt(circle_pose(t, radius, height, turns), intr, H, W,
-                   grayscale=True, rich=rich) for t in ts]
-    )
+    render = partial(render_gt, intrinsics=intr, H=H, W=W, grayscale=True, rich=rich)
+    if workers > 1:
+        # a worker that cannot start raises BrokenProcessPool here
+        with ProcessPoolExecutor(min(workers, n_frames), mp_context=get_context("spawn")) as pool:
+            frames = np.stack(list(pool.map(render, poses)))
+    else:
+        frames = np.stack([render(p) for p in poses])
 
     # per-pixel linlog intensity over time
     ll = _lin_log(frames[..., 0] * 255.0)  # [F, H, W]

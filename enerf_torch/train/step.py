@@ -1,13 +1,15 @@
-"""The event-mode training step, on the fixed-step or the march renderer.
+"""The training steps (events, frames), on the fixed-step or the march
+renderer.
 
-Counterpart of enerf_tpu/train/step.py (reference utils.py:482-636): two
-renders of one pixel ray at the poses of an event and its successor, the
-lin-log difference held to polarity x C, plus the optional opacity and
-distortion regularizers; with event_only=0 the frame term, an MSE on random
-pixels of a frame against a per-pixel random background, weighted by
-weight_loss_rgb; with negative_event_sampling the no-event pair, whose
-log-intensity change is held below the threshold by a hinge; then Adam +
-EMA.
+Counterpart of enerf_tpu/train/step.py (reference utils.py:482-636).  The
+event step: two renders of one pixel ray at the poses of an event and its
+successor, the lin-log difference held to polarity x C, plus the optional
+opacity and distortion regularizers; with event_only=0 the frame term, an
+MSE on random pixels of a frame against a per-pixel random background,
+weighted by weight_loss_rgb; with negative_event_sampling the no-event
+pair, whose log-intensity change is held below the threshold by a hinge;
+then Adam + EMA.  The frames step (events=0): the frame term alone, then
+the same update.
 
 `use_march` selects the occupancy-march renderer (cuda_ray); otherwise the
 fixed-step renderer draws num_steps uniform samples per ray, optionally
@@ -126,14 +128,14 @@ def _render(params, ss, rays_o, rays_d, bg, jitter, occ_bitfield, u=None):
 
 
 def draw_noise(ss, n_rays, generator, device, n_no_ev=0, n_frames=0):
-    """The step's random draws: the event pair's bg [1, C] and each
-    render's jitter (`jitter1`, `jitter2`: [N] for the march, [N, num_steps]
-    for the fixed-step renderer, plus `u1`, `u2` [N, upsample_steps] with
-    upsampling); with n_no_ev > 0 the no-event pair's (`bg_no_ev`,
-    `jitter_no_ev1/2`, `u_no_ev1/2`); with n_frames > 0 the frame term's
-    per-pixel bg [n_frames, C] and its render's (`bg_frames`,
-    `jitter_frames`, `u_frames`).  The JAX step's keys k_bg, k1, k2; k3,
-    k4, k5; kf."""
+    """The step's random draws: with n_rays > 0 the event pair's bg [1, C]
+    and each render's jitter (`jitter1`, `jitter2`: [N] for the march,
+    [N, num_steps] for the fixed-step renderer, plus `u1`, `u2`
+    [N, upsample_steps] with upsampling); with n_no_ev > 0 the no-event
+    pair's (`bg_no_ev`, `jitter_no_ev1/2`, `u_no_ev1/2`); with n_frames > 0
+    the frame term's per-pixel bg [n_frames, C] and its render's
+    (`bg_frames`, `jitter_frames`, `u_frames`).  The JAX step's keys k_bg,
+    k1, k2; k3, k4, k5; kf."""
     def rand(*shape):
         return torch.rand(*shape, device=device, generator=generator)
 
@@ -145,8 +147,10 @@ def draw_noise(ss, n_rays, generator, device, n_no_ev=0, n_frames=0):
             out[f"u{name}"] = rand(n, ss.upsample_steps)
         return out
 
-    noise = {"bg": rand(1, ss.out_dim_color)}
-    noise.update(render_noise(n_rays, "1"), **render_noise(n_rays, "2"))
+    noise = {}
+    if n_rays:
+        noise["bg"] = rand(1, ss.out_dim_color)
+        noise.update(render_noise(n_rays, "1"), **render_noise(n_rays, "2"))
     if n_no_ev:
         noise["bg_no_ev"] = rand(1, ss.out_dim_color)
         noise.update(render_noise(n_no_ev, "_no_ev1"), **render_noise(n_no_ev, "_no_ev2"))
@@ -252,3 +256,18 @@ def train_step_events(state, batch, ss, occ, noise=None, generator=None):
     out = {"loss": loss.detach()}
     out.update((k, v.detach()) for k, v in aux.items())
     return out
+
+
+def train_step_frames(state, batch, ss, occ, noise=None, generator=None):
+    """One frames-mode step (events=0): the frame loss, backward, Adam + EMA
+    on `state` (in place).  Returns the detached loss, loss_frames and
+    per_ray_loss [N] (the error map's update)."""
+    if noise is None:
+        noise = draw_noise(ss, 0, generator, batch["rays_o"].device,
+                           n_frames=batch["rays_o"].shape[0])
+    state.zero_grad()
+    loss, aux = frames_loss_fn(state.params, ss, batch, noise, occ)
+    loss.backward()
+    state.apply_updates()
+    return {"loss": loss.detach(), "loss_frames": aux["loss_frames"].detach(),
+            "per_ray_loss": aux["per_ray_loss"].detach()}

@@ -8,8 +8,10 @@ Counterpart of enerf_tpu/train/trainer.py (reference nerf/utils.py:289-1416):
   - on the march path, `mark_untrained_grid` from the provider's frame
     poses at the start of `train`, and the occupancy update every 16 steps
     *before* the step;
-  - the per-step loop, with the fixed-step renderer for the first
-    march_warmup steps, the `[train]` log line and the no-event epoch gate;
+  - the per-step loop: the event step, or with events=0 the frames step
+    followed by the error map's update; the fixed-step renderer for the
+    first march_warmup steps, the `[train]` log line and the no-event
+    epoch gate;
   - the per-epoch tail: epoch loss stats, a rotating checkpoint every
     ckpt_interval epochs, evaluation every eval_interval epochs, the
     best-by-metric checkpoint with the EMA weights, the eval_log JSON line
@@ -43,7 +45,9 @@ from enerf_torch.train import metrics as M
 from enerf_torch.train.checkpoints import CheckpointManager, load_checkpoint
 from enerf_torch.train.losses import rgb_to_luma
 from enerf_torch.train.state import TrainState
-from enerf_torch.train.step import StepStatics, train_step_events, warm_statics
+from enerf_torch.train.step import (
+    StepStatics, train_step_events, train_step_frames, warm_statics,
+)
 from enerf_torch.utils.png import write_png
 
 
@@ -161,7 +165,7 @@ class Trainer:
             self.log(f"[occupancy] marked untrained cells: {frac:.4f} of the grid")
 
         def log_aux(aux, step):
-            aux = {k: float(v) for k, v in aux.items()}
+            aux = {k: float(v) for k, v in aux.items() if v.ndim == 0}
             loss = aux["loss"]
             if not np.isfinite(loss):
                 self.log(f"[nan] non-finite loss {loss} at step {step}")
@@ -196,7 +200,10 @@ class Trainer:
                 # the march_warmup phase: uniform fixed-step renders first
                 ss = warm_statics(self.ss) if global_step < cfg.march_warmup else self.ss
                 occ = self.occupancy.occ_bitfield if self.occupancy is not None else None
-                aux = train_step_events(self.state, batch, ss, occ, generator=self.generator)
+                step_fn = train_step_events if cfg.events else train_step_frames
+                aux = step_fn(self.state, batch, ss, occ, generator=self.generator)
+                if cfg.error_map and hasattr(provider, "update_error_map"):
+                    provider.update_error_map(aux["per_ray_loss"])
                 global_step += 1
                 if global_step % cfg.log_every == 0:
                     epoch_losses.append(log_aux(aux, global_step))

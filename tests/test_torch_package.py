@@ -32,7 +32,8 @@ def test_package_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(enerf_torch.__path__, 'enerf_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'enerf_tpu'))\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'enerf_tpu', 'cv2', 'h5py'))\n"
         "assert len(mods) >= 26, mods\n"
         "assert {'enerf_torch.ops.hashgrid', 'enerf_torch.ops.composite',\n"
         "        'enerf_torch.ops.group_gather', 'enerf_torch.render.renderer',\n"
@@ -68,12 +69,13 @@ def test_config_parses_tpu_flags_and_refuses_missing_paths():
     cfg = _cfg("--fuse_steps", "4", "--segsum_grad", "1", "--mesh_shape", "2")
     assert cfg.fp16 and cfg.cuda_ray and cfg.preload and cfg.ff
     check_supported(cfg)  # TPU-only options are accepted (and ignored)
-    # the no-event pair, the device slerp, the frame term and march_warmup
-    # are ported
+    # the no-event pair, the device slerp, the frame term, march_warmup and
+    # frames mode are ported
     check_supported(_cfg("--negative_event_sampling", "1", "--precompute_evs_poses", "0"))
     check_supported(_cfg("--march_warmup", "10", "--event_only", "0"))
-    for extra in (["--bg_radius", "2"], ["--encoding", "frequency"],
-                  ["--events", "0", "--event_only", "0"]):
+    check_supported(_cfg("--events", "0", "--event_only", "0", "--error_map"))
+    for extra in (["--bg_radius", "2"], ["--encoding", "frequency"], ["--rand_pose", "0"],
+                  ["--mode", "tumvie"]):
         with pytest.raises(NotImplementedError):
             check_supported(_cfg(*extra))
     demo = os.path.join(REPO, "configs", "synthetic_demo.txt")
