@@ -71,7 +71,29 @@ Phases (one line each; any failure exits non-zero before the result lines):
      and the phase reruns with --remat_fixed 1;
  14. frames mode on the march: --ff -O --events 0 --error_map on the
      synthetic scene, 8 steps with an occupancy update: K1 launched by
-     the frames step, finite losses, an error map that changed.
+     the frames step, finite losses, an error map that changed;
+ 15. tumvie fixture: the simulator at the event camera's 720 x 1280, 6
+     frames, written by the port's save_tumvie_dataset under
+     build/chip_smoke_tumvie/ (PNGs, events_left.h5, rectify_map_left.h5,
+     the calib JSONs, mocap_data.txt), its seconds; every H5 dataset read
+     back by the port's HDF5 reader equal to the array written, the
+     reader's MB/s on t, and one EventSlicer window equal to a numpy mask
+     over the arrays written;
+ 16. configs/mocapDesk2/mocapDesk2_enerf.txt as published (tumvie, event
+     only, 2 renders of 20,096 rays x 512 steps, the stereo event views)
+     on the fixture, train / val indices cut to its 6 frames: one batch
+     under torch.cuda.set_sync_debug_mode("error") (the window is drawn
+     on the card), 8 steps and one evaluation (a 720 x 1280 frame view
+     and its stereo event view): steps/s, peak memory, each view's
+     seconds, the stereo PNG and _raw.npy, finite losses, K1 / K2 / K3
+     launches on the path; a torch.OutOfMemoryError as published is
+     printed as the config's result and the phase reruns with
+     --remat_fixed 1;
+ 17. configs/eds11/eds11_enerf.txt as published (eds, event only, the
+     no-event pairs: 2 x 30,096 + 2 x 15,048 rays x 512 steps) on an EDS
+     directory written by the port's save_eds_dataset from phase 11's
+     480 x 640 simulation with a t_offset of 5 s, 4 steps and one
+     evaluation, with phase 16's prints and OOM rule.
 Then a `{"kernels": [...]}` line, the card line, and last the result line
 `{"ok": true, "device": {...}}`.
 """
@@ -1134,8 +1156,8 @@ def paeth_png(img8):
 
 def phase_esim_fixture(root):
     """A 480 x 640 esim directory from the port's writer; the PNGs read back
-    bit-equal.  Returns (datadir, the same directory as ShakeCarpet1), the
-    second name selecting the scene's pose offset."""
+    bit-equal.  Returns (datadir, the same directory as ShakeCarpet1, the
+    simulation), the second name selecting the scene's pose offset."""
     import numpy as np
     from enerf_torch.data import provider, synthetic
     from enerf_torch.utils import png
@@ -1177,7 +1199,7 @@ def phase_esim_fixture(root):
           f"every row {written[0].nbytes / 1e6 / t_paeth:.2f} MB/s ({t_paeth:.3f} s)")
     if not same:
         raise AssertionError("the port's PNG reader did not give back the frames written")
-    return datadir, os.path.join(root, "ShakeCarpet1")
+    return datadir, os.path.join(root, "ShakeCarpet1"), data
 
 
 def esim_config(config, datadir, workspace, *extra):
@@ -1190,32 +1212,65 @@ def esim_config(config, datadir, workspace, *extra):
         *extra])
 
 
-def esim_run(cfg, workspace, steps, evaluate):
+def esim_run(cfg, workspace, steps, evaluate, providers=None):
     """One epoch of `steps` steps through the entry points of
-    `python -m enerf_torch` on the card: (trainer, train provider, data
-    load seconds, peak memory GiB)."""
+    `python -m enerf_torch` on the card: (trainer, (train, val) providers,
+    data load seconds, peak memory GiB).  `providers` reuses a built pair;
+    the trainer's `view_seconds` lists (H, W, seconds) of each rendered
+    view."""
     import torch
     from enerf_torch.__main__ import get_select_frames
     from enerf_torch.data.provider import make_providers
     from enerf_torch.train.trainer import Trainer
 
     trainer = Trainer(cfg, workspace=workspace)
+    render, trainer.view_seconds = trainer.render_view, []
+
+    def timed_render(pose, intrinsics, H, W):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = render(pose, intrinsics, H, W)
+        torch.cuda.synchronize()
+        trainer.view_seconds.append((H, W, time.time() - t0))
+        return out
+
+    trainer.render_view = timed_render
     t0 = time.time()
-    train, val = make_providers(cfg, get_select_frames(cfg))
+    train, val = providers or make_providers(cfg, get_select_frames(cfg))
     load = time.time() - t0
     train.steps_per_epoch = steps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     trainer.train(train, val if evaluate else None, max_epoch=1)
     torch.cuda.synchronize()
-    return trainer, train, load, torch.cuda.max_memory_allocated() / 2**30
+    return trainer, (train, val), load, torch.cuda.max_memory_allocated() / 2**30
+
+
+def run_as_published(tag, name, make_cfg, workspace, steps, evaluate, providers=None):
+    """esim_run of a published config as published; if it does not fit
+    the card, the OutOfMemoryError is printed as its result and the run
+    repeats with --remat_fixed 1.  Returns (label, cfg, esim_run's tuple)."""
+    import torch
+    for label, extra in (("as published", ()), ("with --remat_fixed 1", ("--remat_fixed", "1"))):
+        cfg = make_cfg(*extra)
+        try:
+            return label, cfg, esim_run(cfg, workspace, steps, evaluate, providers)
+        except torch.OutOfMemoryError as e:
+            if extra:
+                raise
+            print(f"[{tag}] {name} {label}: torch.OutOfMemoryError at "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated: "
+                  f"{str(e).splitlines()[0]}")
+        gc.collect()  # the failed run's tensors went with the exception
+        torch.cuda.empty_cache()
 
 
 def esim_shape_line(trainer, train, cfg):
     meta, ss = trainer.static.grid_meta, trainer.ss
-    rays = train.num_rays  # the frame render; with events the pair's two renders too
-    if cfg.events:
-        rays = 2 * train.batch_size_evs + (train.num_rays if train.frames is not None else 0)
+    rays = train.num_rays  # the frame render; with events the pair's two renders too,
+    if cfg.events:  # and the no-event pair's
+        rays = (2 * train.batch_size_evs + (train.num_rays if train.frames is not None else 0)
+                + (2 * (train.batch_size_evs // 2) if train.noev_coords is not None else 0))
     return (f"{trainer.static.encoding} {meta.num_levels}x{meta.level_dim}, "
             f"2^{meta.log2_hashmap_size}, {trainer.static.compute_dtype}, {train.H}x{train.W}, "
             f"{rays} rays x {ss.num_steps} steps = {rays * ss.num_steps} samples a step, "
@@ -1230,7 +1285,7 @@ def phase_esim_frames(datadir, workspace):
 
     steps = 16
     cfg = esim_config("spiral1/spiral1_nerf.txt", datadir, workspace, "--iters", str(steps))
-    trainer, train, load, peak = esim_run(cfg, workspace, steps, evaluate=True)
+    trainer, (train, _), load, peak = esim_run(cfg, workspace, steps, evaluate=True)
     secs, res = trainer.epoch_seconds, trainer.last_eval
     losses = [aux["loss"] for _, aux in trainer.history]
     print(f"[esim-frames] spiral1_nerf: {esim_shape_line(trainer, train, cfg)}; "
@@ -1315,23 +1370,13 @@ def phase_esim_events(datadir, workspace):
     fit the card, the OutOfMemoryError is its result and the phase reruns
     with --remat_fixed 1."""
     import numpy as np
-    import torch
 
     steps = 8
-    name = "shakeCarpet1/shakeCarpet1_enerfBoth.txt"
-    for label, extra in (("as published", ()), ("with --remat_fixed 1", ("--remat_fixed", "1"))):
-        cfg = esim_config(name, datadir, workspace, "--iters", str(steps), *extra)
-        try:
-            trainer, train, load, peak = esim_run(cfg, workspace, steps, evaluate=False)
-            break
-        except torch.OutOfMemoryError as e:
-            if extra:
-                raise
-            print(f"[esim-events] shakeCarpet1_enerfBoth {label}: torch.OutOfMemoryError at "
-                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated: "
-                  f"{str(e).splitlines()[0]}")
-        gc.collect()  # the failed run's tensors went with the exception
-        torch.cuda.empty_cache()
+    label, cfg, (trainer, (train, _), load, peak) = run_as_published(
+        "esim-events", "shakeCarpet1_enerfBoth",
+        lambda *extra: esim_config("shakeCarpet1/shakeCarpet1_enerfBoth.txt", datadir, workspace,
+                                   "--iters", str(steps), *extra),
+        workspace, steps, evaluate=False)
     secs, hist = trainer.epoch_seconds, trainer.history
     print(f"[esim-events] shakeCarpet1_enerfBoth {label}: {esim_shape_line(trainer, train, cfg)}; "
           f"{int(train.chains.xs.shape[0])} chained events, {train.frames.shape[0]} corrupted "
@@ -1386,6 +1431,152 @@ def phase_frames_march(workspace):
     return launches
 
 
+TUMVIE_H, TUMVIE_W = 720, 1280  # the TUM-VIE event camera (the loader's H_ev, W_ev)
+STEREO_TRAIN, STEREO_VAL = (0, 2, 4), (3,)  # the published splits' pattern, cut to 6 frames
+EDS_T_OFFSET_US = 5_000_000
+
+
+def phase_tumvie_fixture(root):
+    """A 720 x 1280, 6-frame TUM-VIE directory from the port's writer; its
+    H5 files read back by the port's reader equal to what was written."""
+    import numpy as np
+    from enerf_torch.data import h5events, synthetic, tumvie
+    from enerf_torch.utils import hdf5
+
+    shutil.rmtree(root, ignore_errors=True)
+    datadir = os.path.join(root, "mocap-desk2")
+    t0 = time.time()
+    # a low threshold, so that pixels have >= 2 events inside one image's
+    # window (the tumvie sampler draws within one window)
+    data = synthetic.simulate_events(H=TUMVIE_H, W=TUMVIE_W, n_frames=ESIM_FRAMES, C=0.04,
+                                     workers=ESIM_FRAMES)
+    t_sim = time.time() - t0
+    tumvie.save_tumvie_dataset(data, datadir, scale=0.5)  # the mocapDesk2 configs' scale
+    secs = time.time() - t0
+    ev = data["events"][np.argsort(data["events"][:, 2], kind="stable")]
+    t_us = (ev[:, 2] * 1e6).astype(np.int64)
+    written = {"events/x": ev[:, 0].astype(np.uint16), "events/y": ev[:, 1].astype(np.uint16),
+               "events/t": t_us, "events/p": (ev[:, 3] > 0).astype(np.int8),
+               "ms_to_idx": h5events.compute_ms_to_idx(t_us, tick_ns=1000)}
+    rmap = np.stack(np.meshgrid(np.arange(TUMVIE_W), np.arange(TUMVIE_H), indexing="xy"), -1)
+    same = []
+    with hdf5.File(os.path.join(datadir, "events_left.h5")) as f:
+        t0 = time.time()
+        t_back = np.asarray(f["events/t"])
+        t_read = time.time() - t0
+        for k, a in written.items():
+            b = np.asarray(f[k])
+            same.append(b.dtype == a.dtype and np.array_equal(b, a))
+        lo_us, hi_us = int(t_us[len(t_us) // 3]), int(t_us[len(t_us) // 2]) + 1
+        window = h5events.EventSlicer(f).get_events(lo_us, hi_us)
+    with hdf5.File(os.path.join(datadir, "rectify_map_left.h5")) as f:
+        back = np.asarray(f["rectify_map"])
+        same.append(back.dtype == np.float32 and np.array_equal(back, rmap.astype(np.float32)))
+    mask = (t_us >= lo_us) & (t_us < hi_us)
+    same_window = all(np.array_equal(window[k], written[f"events/{k}"][mask]) for k in "xytp")
+    print(f"[tumvie] fixture {TUMVIE_H}x{TUMVIE_W}, {ESIM_FRAMES} frames, {len(ev)} events: "
+          f"{secs:.2f} s ({t_sim:.2f} s simulating in {ESIM_FRAMES} processes); the port's HDF5 "
+          f"reader gave back {sum(same)} of {len(same)} datasets equal to the arrays written "
+          f"(events/x, y, t, p, ms_to_idx, rectify_map); t ({t_back.nbytes / 1e6:.2f} MB) read "
+          f"in {t_read:.4f} s = {t_back.nbytes / 1e6 / t_read:.1f} MB/s; EventSlicer window "
+          f"[{lo_us}, {hi_us}) us: {mask.sum()} events, "
+          f"{'equal' if same_window else 'NOT equal'} to a numpy mask over the arrays written")
+    if not (all(same) and same_window and mask.sum() > 0):
+        raise AssertionError("the port's HDF5 reader did not give back the tumvie fixture")
+    return datadir
+
+
+def phase_eds_fixture(data, root):
+    """An EDS directory from the port's writer, from phase 11's 480 x 640
+    simulation (the eds configs' frame size), with a t_offset: named
+    00_peanuts_dark, as eds11's datadir, which selects its pose offset."""
+    from enerf_torch.data import eds
+
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    datadir = eds.save_eds_dataset(data, os.path.join(root, "00_peanuts_dark"), scale=0.5,
+                                   t_offset=EDS_T_OFFSET_US)
+    print(f"[eds] fixture {data['H']}x{data['W']}, {len(data['frame_ts'])} frames, "
+          f"{len(data['events'])} events, t_offset {EDS_T_OFFSET_US} us: written in "
+          f"{time.time() - t0:.2f} s")
+    return datadir
+
+
+def stereo_config(config, datadir, workspace, *extra):
+    """A published tumvie / eds config as published, on a fixture: its
+    train / val indices cut to the fixture's frames (the only cut),
+    evaluation after the (one) epoch."""
+    from enerf_torch.config import build_config
+    idxs = [a for i in STEREO_TRAIN for a in ("--train_idxs", str(i))]
+    idxs += [a for i in STEREO_VAL for a in ("--val_idxs", str(i))]
+    return build_config(["--config", os.path.join(REPO, "configs", config), "--datadir", datadir,
+                         "--outdir", workspace, "--eval_interval", "1", "--log_every", "1",
+                         *idxs, *extra])
+
+
+def phase_stereo(tag, config, datadir, workspace, steps):
+    """A published tumvie / eds config as published on its fixture: one
+    batch under the CUDA sync check, `steps` steps and one evaluation with
+    the stereo event view; the OOM rule of phase 13."""
+    import numpy as np
+    import torch
+    from enerf_torch.__main__ import get_select_frames
+    from enerf_torch.data.provider import make_providers
+    from enerf_torch.ops import fused_mlp, group_gather, scatter_accum
+
+    name = os.path.basename(config)[:-4]
+    cfg = stereo_config(config, datadir, workspace, "--iters", str(steps))
+    t0 = time.time()
+    train, val = make_providers(cfg, get_select_frames(cfg))
+    load = time.time() - t0
+    gen = torch.Generator(device=train.device).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a host sync in the batch raises
+    try:
+        batch = train.train_step_batch(gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"[{tag}] {name}: cut to train_idxs {list(STEREO_TRAIN)}, val_idxs "
+          f"{list(STEREO_VAL)} (the fixture's 6 frames; nothing else cut); data loaded in "
+          f"{load:.2f} s: {int(train.chains.xs.shape[0])} chained events in {train.n_frames} "
+          f"windows, {train.H}x{train.W} event camera, {len(val.val_views())} val view(s), "
+          f"{len(val.stereo_views or [])} stereo view(s); one batch with no host sync "
+          f"(torch.cuda.set_sync_debug_mode('error')): "
+          + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items()))
+    kernels = (fused_mlp.fused_field_head, scatter_accum.block_table_grad,
+               group_gather.group_gather)
+    for k in kernels:
+        k.launches = 0
+    label, cfg, (trainer, _, _, peak) = run_as_published(
+        tag, name, lambda *extra: stereo_config(config, datadir, workspace, "--iters", str(steps),
+                                                *extra),
+        workspace, steps, evaluate=True, providers=(train, val))
+    launches = [k.launches for k in kernels]
+    secs, res, hist = trainer.epoch_seconds, trainer.last_eval, trainer.history
+    evdir = os.path.join(trainer.workspace, "validation", "event_view")
+    written = sorted(os.listdir(evdir)) if os.path.isdir(evdir) else []
+    print(f"[{tag}] {name} {label}: {esim_shape_line(trainer, train, cfg)}")
+    print(f"[{tag}] {steps} steps {secs['steps']:.3f} s = {steps / secs['steps']:.4f} steps/s "
+          f"(the first included); peak memory {peak:.2f} GiB; evaluation "
+          f"{secs.get('evaluate', float('nan')):.3f} s, its views "
+          + ", ".join(f"{h}x{w} {t:.3f} s" for h, w, t in trainer.view_seconds)
+          + f" (frame view(s), then stereo view(s)); psnr_corrected "
+          f"{res.get('psnr_corrected')}, affine a {res.get('affine_a')} b {res.get('affine_b')}; "
+          f"validation/event_view/: {written}; K1 / K2 / K3 launches {launches}; losses "
+          + ", ".join(f"{aux['loss']:.5f}" for _, aux in hist))
+    losses = [[v for k, v in aux.items() if k.startswith("loss")] for _, aux in hist]
+    if not (len(losses) == steps and np.isfinite(losses).all()):
+        raise AssertionError(f"{name} losses not all finite: {hist}")
+    want = {f"ep0001_{j:04d}{s}" for j in range(len(STEREO_VAL))
+            for s in (".png", "_raw.npy", "_depth.png")}
+    shapes = [(h, w) for h, w, _ in trainer.view_seconds]
+    if not (want <= set(written) and shapes[-1] == (train.H, train.W) and len(shapes) == 2):
+        raise AssertionError(f"{name}: stereo view outputs {written}, views rendered {shapes}")
+    raw = np.load(os.path.join(evdir, "ep0001_0000_raw.npy"))
+    if not (raw.shape == (train.H, train.W, 1) and np.isfinite(raw).all()):
+        raise AssertionError(f"{name}: stereo raw render {raw.shape} not finite")
+
+
 def main():
     try:
         import torch
@@ -1426,7 +1617,8 @@ def main():
         phase_default_breakdown(trainer, train)
         del trainer, train
         phase_march_warmup(os.path.join(REPO, "build", "chip_smoke_warmup"))
-        datadir, carpet = phase_esim_fixture(os.path.join(REPO, "build", "chip_smoke_esim"))
+        datadir, carpet, esim_data = phase_esim_fixture(
+            os.path.join(REPO, "build", "chip_smoke_esim"))
         phase_esim_frames(datadir, os.path.join(REPO, "build", "chip_smoke_spiral1"))
         gc.collect()
         torch.cuda.empty_cache()
@@ -1434,6 +1626,16 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         k1_frames = phase_frames_march(os.path.join(REPO, "build", "chip_smoke_frames_march"))
+        tumvie_dir = phase_tumvie_fixture(os.path.join(REPO, "build", "chip_smoke_tumvie"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_stereo("tumvie", "mocapDesk2/mocapDesk2_enerf.txt", tumvie_dir,
+                     os.path.join(REPO, "build", "chip_smoke_mocapdesk2"), steps=8)
+        gc.collect()
+        torch.cuda.empty_cache()
+        eds_dir = phase_eds_fixture(esim_data, os.path.join(REPO, "build", "chip_smoke_eds"))
+        phase_stereo("eds", "eds11/eds11_enerf.txt", eds_dir,
+                     os.path.join(REPO, "build", "chip_smoke_eds11"), steps=4)
     except Exception:  # every phase's failure ends the run non-zero
         traceback.print_exc()
         print("[smoke] FAIL")

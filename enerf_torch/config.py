@@ -296,8 +296,6 @@ def check_supported(cfg):
         missing.append(f"encoding={cfg.encoding}")
     if cfg.bg_radius > 0:
         missing.append("bg_radius > 0 (background net)")
-    if cfg.mode not in ("synthetic", "esim"):
-        missing.append(f"mode={cfg.mode} (the H5 event loaders)")
     if cfg.rand_pose >= 0:
         missing.append("rand_pose (CLIP step)")
     if missing:

@@ -3,8 +3,10 @@
 Counterpart of enerf_tpu/data/events.py (reference provider.py:1146-1219,
 1363-1448).  Chains are built once on the host (one vectorized lexsort:
 frame, then pixel, then time); sampling runs on the chains' device.  The
-frame and pixel bounds stay on the host as numpy, so the sampler needs no
-device sync to know its index ranges.
+frame and pixel bounds are kept twice: as numpy on the host, for a frame
+given as an int (one event window), and on the device, for a frame drawn
+there (the per-image windows of tumvie / eds), so that neither costs a
+device sync.
 
 The JAX package leans on gathers that clamp out-of-range indices; here
 every index is clamped explicitly, since PyTorch raises on the CPU and
@@ -30,6 +32,8 @@ class EventChains(NamedTuple):
     group_count: torch.Tensor     # [P] int64 events in each pixel group
     frame_bounds: np.ndarray      # [F, 2] (start, end) into the flat arrays
     pixel_bounds: np.ndarray      # [F, 2] (start, end) into the group arrays
+    frame_bounds_dev: torch.Tensor  # the same two, int64 on the device
+    pixel_bounds_dev: torch.Tensor
 
 
 def build_event_chains(events, frame_ids=None, n_frames=1, device="cpu"):
@@ -90,6 +94,8 @@ def build_event_chains(events, frame_ids=None, n_frames=1, device="cpu"):
         group_count=dev(counts, torch.int64),
         frame_bounds=frame_bounds,
         pixel_bounds=pixel_bounds,
+        frame_bounds_dev=dev(frame_bounds, torch.int64),
+        pixel_bounds_dev=dev(pixel_bounds, torch.int64),
     )
     return chains, ev[:, 2].copy()
 
@@ -98,6 +104,8 @@ def sample_event_batch(chains, frame, batch_size, *, generator=None,
                        accumulate=False, acc_max_num_evs=0, draws=None):
     """Sample (event, successor) index pairs (reference provider.py:1367-1405).
 
+    frame: an int (its bounds read on the host) or a [1] int64 tensor on
+    the chains' device (its bounds gathered there: no sync).
     draws: optional (r [B] int in [0, max(n, 1)), u [B] f32 in [0, 1)) —
     the offset into the frame's range and the successor draw; otherwise
     drawn from `generator` on the chains' device.
@@ -105,11 +113,21 @@ def sample_event_batch(chains, frame, batch_size, *, generator=None,
     """
     dev = chains.xs.device
     M = chains.xs.shape[0]
-    bounds = chains.frame_bounds if accumulate else chains.pixel_bounds
-    lo, hi = (int(v) for v in bounds[frame])
+    if isinstance(frame, torch.Tensor):
+        bounds = chains.frame_bounds_dev if accumulate else chains.pixel_bounds_dev
+        lo, hi = bounds.index_select(0, frame)[0]
+        if draws is None:
+            # uniform in [0, max(n, 1)) without reading n on the host (a
+            # modulo bias below n / 2^62)
+            r = torch.randint(0, 2 ** 62, (batch_size,), device=dev,
+                              generator=generator) % (hi - lo).clamp(min=1)
+    else:
+        bounds = chains.frame_bounds if accumulate else chains.pixel_bounds
+        lo, hi = (int(v) for v in bounds[frame])
+        if draws is None:
+            r = torch.randint(0, max(hi - lo, 1), (batch_size,), device=dev,
+                              generator=generator)
     if draws is None:
-        r = torch.randint(0, max(hi - lo, 1), (batch_size,), device=dev,
-                          generator=generator)
         u = torch.rand(batch_size, device=dev, generator=generator)
     else:
         r, u = (torch.as_tensor(v, device=dev) for v in draws)

@@ -5,8 +5,10 @@ Counterpart of enerf_tpu/data/poses.py (reference pose_utils.py:138-160).
 own copy) runs once when a dataset is built; `interp_pose_device` (slerp +
 cubic Hermite on tensors) computes poses per batch instead, for
 precompute_evs_poses=0 and for the no-event pair's random times.
-`get_hom_trafos` and `nerf_matrix_to_ngp` are the esim loader's pose
-conventions (copies of the JAX package's numpy functions).
+`get_hom_trafos` and `nerf_matrix_to_ngp` are the loaders' pose
+conventions, and `preprocess_pose_array_sphere` the tumvie loader's
+sphere preprocessing (pp_poses_sphere=1): copies of the JAX package's
+numpy functions.
 """
 
 import numpy as np
@@ -118,3 +120,104 @@ def interp_pose_device(key_ts, key_quats, key_trans, ts_q):
     tr = ((2 * u3 - 3 * u2 + 1) * p0 + (u3 - 2 * u2 + uu) * m0
           + (-2 * u3 + 3 * u2) * p1 + (u3 - u2) * m1)
     return torch.cat([quat_to_mat(q), tr[..., None]], dim=-1)
+
+
+# ----------------------------------------------------------------------------
+# pose-set preprocessing (reference pose_utils.py:372-470, provider.py:358-408)
+
+
+def normalize(x):
+    return x / np.linalg.norm(x)
+
+
+def viewmatrix(z, up, pos):
+    """[3, 4] camera matrix from forward z, up hint, and position."""
+    vec2 = normalize(np.asarray(z, np.float64))
+    vec0 = normalize(np.cross(np.asarray(up, np.float64), vec2))
+    vec1 = normalize(np.cross(vec2, vec0))
+    return np.stack([vec0, vec1, vec2, np.asarray(pos, np.float64)], 1)
+
+
+def poses_avg(poses):
+    """Average c2w of a pose set [N, 3, 4] (pose_utils.py:395-445)."""
+    poses = np.asarray(poses)
+    center = poses[:, :3, 3].mean(0)
+    vec2 = normalize(poses[:, :3, 2].sum(0))
+    up = poses[:, :3, 1].sum(0)
+    return viewmatrix(vec2, up, center)
+
+
+def recenter_poses(poses):
+    """Recenter a pose set around its average pose (pose_utils.py:456-490).
+
+    poses: [N, 3, 4] -> [N, 3, 4], convention preserved.
+    """
+    poses = np.asarray(poses, np.float64)
+    c2w = np.concatenate([poses_avg(poses), [[0, 0, 0, 1.0]]], 0)
+    bottom = np.tile([[[0, 0, 0, 1.0]]], (poses.shape[0], 1, 1))
+    hom = np.concatenate([poses[:, :3, :4], bottom], 1)
+    out = np.linalg.inv(c2w) @ hom
+    return out[:, :3, :4]
+
+
+def rotmat_between(a, b):
+    """Rotation taking direction a to b (pose_utils rotmat, provider.py:60)."""
+    a, b = normalize(np.asarray(a, np.float64)), normalize(np.asarray(b, np.float64))
+    v = np.cross(a, b)
+    c = np.dot(a, b)
+    s = np.linalg.norm(v)
+    kmat = np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]])
+    return np.eye(3) + kmat + kmat @ kmat * ((1 - c) / (s ** 2 + 1e-10))
+
+
+def closest_point_2_lines(oa, da, ob, db):
+    """Point closest to both rays + parallelism weight (pose_utils.py:610-622)."""
+    da, db = normalize(np.asarray(da)), normalize(np.asarray(db))
+    c = np.cross(da, db)
+    denom = np.linalg.norm(c) ** 2
+    t = np.asarray(ob) - np.asarray(oa)
+    ta = np.linalg.det([t, db, c]) / (denom + 1e-10)
+    tb = np.linalg.det([t, da, c]) / (denom + 1e-10)
+    ta, tb = min(ta, 0.0), min(tb, 0.0)
+    return (oa + ta * da + ob + tb * db) * 0.5, denom
+
+
+def preprocess_pose_array_sphere(poses, n_subsample=100, seed=0):
+    """Sphere preprocessing of a c2w pose set (provider.py:358-408):
+    recenter, axis flips into rub, rotate average up to +z, shift to the
+    center of attention (closest point of ray pairs), rescale radius to 1.
+
+    poses: [N, 4, 4] -> [N, 4, 4]
+    """
+    poses = np.array(poses, np.float64, copy=True)
+    N = len(poses)
+    poses[:, :3, :] = recenter_poses(poses[:, :3, :])
+
+    poses[:, 0:3, 1] *= -1
+    poses[:, 0:3, 2] *= -1
+    poses = poses[:, [1, 0, 2, 3], :]
+    poses[:, 2, :] *= -1
+
+    up = poses[:, 0:3, 1].sum(0)
+    Rm = rotmat_between(up, [0, 0, 1])
+    Rm = np.pad(Rm, [0, 1])
+    Rm[-1, -1] = 1
+    poses = Rm @ poses
+
+    rng = np.random.default_rng(seed)
+    idxs = rng.integers(0, N, size=min(n_subsample, N))
+    sub = poses[idxs]
+    totw, totp = 0.0, np.zeros(3)
+    for i in range(len(sub)):
+        mf = sub[i, :3, :]
+        for j in range(len(sub)):
+            mg = sub[j, :3, :]
+            p, w = closest_point_2_lines(mf[:, 3], mf[:, 2], mg[:, 3], mg[:, 2])
+            if w > 0.01:
+                totp += p * w
+                totw += w
+    totp /= max(totw, 1e-10)
+    poses[:, :3, 3] -= totp
+    avglen = np.linalg.norm(poses[:, :3, 3], axis=-1).mean()
+    poses[:, :3, 3] *= 1.0 / avglen
+    return poses

@@ -8,16 +8,18 @@ Counterpart of enerf_tpu/data/provider.py (reference nerf/provider.py):
     (utils/png.py), since the card has no OpenCV;
   - `FramesProvider`: frame supervision (num_rays random pixels of one
     random frame per step, optionally weighted by an error map), and the
-    source of validation and test views;
+    source of validation and test views, with the stereo rigs' event
+    camera views (`stereo_views`);
   - `EventProvider` (per-event poses precomputed on the host, or
     interpolated on the device per batch with precompute_evs_poses=0), its
-    no-event pairs (negative_event_sampling) and its frames for the frame
-    term of event_only=0;
-  - `make_providers` for mode=synthetic and mode=esim.
+    per-image event windows (tumvie / eds: a window drawn each step), the
+    event camera's own intrinsics, its no-event pairs
+    (negative_event_sampling) and its frames for the frame term of
+    event_only=0;
+  - `make_providers` for mode=synthetic, esim, tumvie and eds.
 Everything a step samples lives on the provider's device, and every draw
 comes from the caller's torch.Generator, so a batch costs no host-device
-transfer and no sync.  The tumvie / eds loaders and rand_pose batches are
-not ported.
+transfer and no sync.  rand_pose batches are not ported.
 """
 
 import glob
@@ -29,7 +31,7 @@ import torch
 from scipy.spatial.transform import Rotation as R
 
 from enerf_torch.backend import resolve_device
-from enerf_torch.data import synthetic
+from enerf_torch.data import eds, synthetic, tumvie
 from enerf_torch.data.events import build_event_chains, sample_event_batch
 from enerf_torch.data.poses import (
     get_hom_trafos, interp_pose_device, make_pose_interpolator, mat_to_quat_np,
@@ -201,7 +203,7 @@ def apply_scene_pose_offset(datadir, data, pp_poses_sphere=False):
     off = next((xyz for key, xyz in _SCENE_POSE_OFFSETS.items() if key in name), None)
     if off is None or (name.startswith("00_peanuts_dark") and pp_poses_sphere):
         return data
-    for key in ("poses", "hf_poses"):
+    for key in ("poses", "hf_poses", "val_poses"):
         if data.get(key) is not None and len(data[key]):
             data[key][:, :3, 3] += np.asarray(off)
     return data
@@ -303,13 +305,15 @@ def frame_batch(images, poses, intrinsics, H, W, num_rays, generator=None, fi=No
 class FramesProvider:
     """Frame supervision (reference NeRFDataset), with optional
     error-map-weighted pixel sampling (utils.py:134-156, 611-632), and the
-    source of validation and test views.  `stereo_views` (the event views
-    of stereo rigs) are not ported and stay None."""
+    source of validation and test views.  `stereo_views`: the event camera
+    views of a stereo rig (tumvie / eds), dicts of pose [4, 4],
+    intrinsics, H, W and gt None, rendered by the evaluation beside the
+    frame views (reference provider.py:1087-1091)."""
 
     def __init__(self, images, poses, intrinsics, num_rays=4096, steps_per_epoch=100,
-                 error_map=False, device="cpu"):
+                 error_map=False, stereo_views=None, device="cpu"):
         self.device = torch.device(device)
-        self.stereo_views = None
+        self.stereo_views = stereo_views
         self.H, self.W = images.shape[1:3]
         self.intrinsics = intrinsics
         self.num_rays = num_rays
@@ -383,17 +387,23 @@ def noev_arrays(events, H, W, chunk_frac=0.05):
 
 
 class EventProvider:
-    """Event-supervision provider (reference EventNeRFDataset) for one event
-    stream: per-pixel chains built once on the host, batches sampled on
-    `device`."""
+    """Event-supervision provider (reference EventNeRFDataset): per-pixel
+    chains built once on the host, batches sampled on `device`.  With
+    `event_frame_ids` the events are grouped per image window (n_frames of
+    them, tumvie / eds) and each batch samples one window drawn on the
+    device; event and no-event rays are cast with `intrinsics_evs` (the
+    event camera, H x W; default `intrinsics`), frame rays with
+    `intrinsics`."""
 
     def __init__(self, events, hf_ts, hf_poses, intrinsics, H, W, batch_size_evs=4096,
                  accumulate_evs=False, acc_max_num_evs=0, steps_per_epoch=100,
                  precompute_evs_poses=True, negative_event_sampling=False,
                  noev_chunk_frac=0.05, frames=None, frame_poses=None, num_rays=4096,
-                 device="cpu"):
+                 event_frame_ids=None, n_frames=1, intrinsics_evs=None, device="cpu"):
         self.device = torch.device(device)
-        self.chains, ev_ts_sorted = build_event_chains(events, device=self.device)
+        self.chains, ev_ts_sorted = build_event_chains(events, event_frame_ids, n_frames,
+                                                       device=self.device)
+        self.n_frames = n_frames if event_frame_ids is not None else 1
         # keyframe poses as (quat, trans) for the device interpolation
         hf_poses = np.asarray(hf_poses, np.float64)
         self.key_ts = torch.as_tensor(np.asarray(hf_ts, np.float64), dtype=torch.float32,
@@ -414,6 +424,7 @@ class EventProvider:
                 torch.as_tensor(a, device=self.device) for a in arrs)
         self.use_no_ev = True  # the trainer's epoch gate (epoch_start_noEvLoss)
         self.intrinsics = intrinsics
+        self.intrinsics_evs = intrinsics_evs or intrinsics
         self.H, self.W = H, W
         self.batch_size_evs = batch_size_evs
         self.accumulate_evs = accumulate_evs
@@ -452,20 +463,27 @@ class EventProvider:
         tt = (self.noev_t0[j] + (self.noev_t1[j] - self.noev_t0[j]) * u).sort(dim=1).values
         p1, p2 = (interp_pose_device(self.key_ts, self.key_quats, self.key_trans, tt[:, i])
                   for i in (0, 1))
-        rays = get_event_rays(xy[:, 0], xy[:, 1], p1, p2, self.intrinsics)
+        rays = get_event_rays(xy[:, 0], xy[:, 1], p1, p2, self.intrinsics_evs)
         return {k.replace("evs", "no_evs"): v for k, v in rays.items()}
 
-    def train_step_batch(self, generator=None):
+    def train_step_batch(self, generator=None, frame=None, draws=None):
         """One event batch (reference collate provider.py:1363-1499):
         paired rays at the poses of each sampled event and its successor,
-        plus the no-event pairs when they are on."""
+        plus the no-event pairs when they are on.  The window is drawn
+        from `generator` on the device when there are several (JAX's
+        randint(0, n_frames)); `frame` ([1] int64) and `draws` (see
+        sample_event_batch) hand them in."""
+        if frame is None and self.n_frames > 1:
+            frame = torch.randint(0, self.n_frames, (1,), device=self.device,
+                                  generator=generator)
         samp = sample_event_batch(
-            self.chains, 0, self.batch_size_evs, generator=generator,
-            accumulate=self.accumulate_evs, acc_max_num_evs=self.acc_max_num_evs)
+            self.chains, 0 if frame is None else frame, self.batch_size_evs,
+            generator=generator, accumulate=self.accumulate_evs,
+            acc_max_num_evs=self.acc_max_num_evs, draws=draws)
         i0, i1 = samp["idx_start"], samp["idx_end"]
         rays = get_event_rays(self.chains.xs[i0], self.chains.ys[i0],
                               self._event_poses(i0), self._event_poses(i1),
-                              self.intrinsics)
+                              self.intrinsics_evs)
         batch = dict(rays, pols=samp["pols"])
         if self.noev_coords is not None and self.use_no_ev:
             batch.update(self._no_event_rays(generator))
@@ -489,17 +507,39 @@ def _maybe_write_transforms(cfg, data):
         print(f"[provider] transforms.json snapshot skipped: {e}")
 
 
+def _load_stereo_dataset(cfg, select_frames):
+    """A tumvie / eds directory with the frames of select_frames: the
+    train frames (and their event windows) as the JAX package loads them,
+    the val frames by index into the whole sequence, as the reference's
+    get_frames does (the JAX package keeps only val indices below the
+    number of train frames loaded, which leaves the published configs
+    without a val split)."""
+    kw = dict(scale=cfg.scale, out_dim_color=cfg.out_dim_color, downscale=cfg.downscale,
+              hotpixs=bool(cfg.hotpixs), e2vid=cfg.e2vid,
+              images_corrupted=bool(cfg.images_corrupted),
+              select_idxs=select_frames.get("train_idxs"),
+              val_idxs=select_frames.get("val_idxs") or None)
+    if cfg.mode == "tumvie":
+        return tumvie.load_tumvie_dataset(cfg.datadir, pp_poses_sphere=bool(cfg.pp_poses_sphere),
+                                          **kw)
+    return eds.load_eds_dataset(cfg.datadir, **kw)
+
+
 def make_providers(cfg, select_frames=None, device=None):
     """(train_provider, val_provider) from cfg (enerf_tpu's make_providers):
-    mode=synthetic runs the in-process event simulator, mode=esim reads
-    cfg.datadir.  With events=0 the train provider is a FramesProvider,
-    else an EventProvider (serving frames too with event_only=0).
-    `select_frames` is __main__.get_select_frames' dict (train / val
-    indices); without it the config's own indices.  `device=None` is the
-    CUDA device (backend.resolve_device)."""
+    mode=synthetic runs the in-process event simulator, mode=esim, tumvie
+    and eds read cfg.datadir.  With events=0 the train provider is a
+    FramesProvider, else an EventProvider (serving frames too with
+    event_only=0).  `select_frames` is __main__.get_select_frames' dict
+    (train / val indices); without it the config's own indices.  For
+    tumvie / eds the events are grouped per train image, and with
+    eval_stereo_views the val provider carries the event camera's views at
+    the val images' times.  `device=None` is the CUDA device
+    (backend.resolve_device)."""
     device = resolve_device(device)
     if select_frames is None:
         select_frames = {"train_idxs": cfg.train_idxs, "val_idxs": cfg.val_idxs}
+    ev_kw, stereo = {}, None
     if cfg.mode == "synthetic":
         data = synthetic.simulate_events(
             H=cfg.H, W=cfg.W, C=abs(cfg.C_thres) if cfg.C_thres > 0 else 0.2,
@@ -508,7 +548,9 @@ def make_providers(cfg, select_frames=None, device=None):
                   else np.repeat(data["frames"], 3, -1))
         events, hf_ts, hf_poses = data["events"], data["frame_ts"], data["poses"]
         train_images, poses = images, data["poses"]
-        va_idx = select_frames.get("val_idxs") or list(range(len(images)))
+        va_idx = [i for i in select_frames.get("val_idxs") or range(len(images))
+                  if i < len(images)]
+        va_images, va_poses = images[va_idx], poses[va_idx]
     elif cfg.mode == "esim":
         data = load_esim_dataset(
             cfg.datadir, scale=cfg.scale, out_dim_color=cfg.out_dim_color,
@@ -521,30 +563,44 @@ def make_providers(cfg, select_frames=None, device=None):
         # images_corrupted trains on the corrupted folder and evaluates on
         # the clean one (reference provider.py:734-735)
         tr_idx = select_frames.get("train_idxs") or list(range(n))
-        va_idx = select_frames.get("val_idxs") or tr_idx[:1]
+        va_idx = [i for i in select_frames.get("val_idxs") or tr_idx[:1] if i < n]
         tr_idx = [i for i in tr_idx if i < n]
         train_images = data.get("train_images", images)[tr_idx]
         poses = data["poses"][tr_idx]
+        va_images, va_poses = images[va_idx], data["poses"][va_idx]
     elif cfg.mode in ("tumvie", "eds"):
-        raise NotImplementedError(
-            f"enerf_torch: the {cfg.mode} loader (ROADMAP.md, open item 1, queue item 3: "
-            "the H5 event, tumvie and eds loaders)")
+        data = _load_stereo_dataset(cfg, select_frames)
+        apply_scene_pose_offset(cfg.datadir, data, pp_poses_sphere=bool(cfg.pp_poses_sphere))
+        _maybe_write_transforms(cfg, data)
+        events, hf_ts, hf_poses = data["events"], data["hf_ts"], data["hf_poses"]
+        train_images, poses = data["images"], data["poses"]
+        fids = data["event_frame_ids"]
+        ev_kw = dict(event_frame_ids=fids, n_frames=int(fids.max()) + 1 if len(fids) else 1,
+                     intrinsics_evs=data["intrinsics_evs"])
+        # the val frames read by index, else every train frame
+        src = "val_" if "val_images" in data else ""
+        va_images, va_poses = data[src + "images"], data[src + "poses"]
+        if cfg.eval_stereo_views:
+            # the event camera's views at the val images' times
+            ev_poses = make_pose_interpolator(hf_ts, hf_poses)(data[src + "tss_imgs_ns"])
+            stereo = [{"pose": np.vstack([p, [0, 0, 0, 1]]),
+                       "intrinsics": data["intrinsics_evs"], "H": data["H_ev"],
+                       "W": data["W_ev"], "gt": None} for p in ev_poses]
     else:
         raise ValueError(f"unknown dataset mode {cfg.mode!r}")
-    va_idx = [i for i in va_idx if i < len(images)]
-    val = FramesProvider(images[va_idx], data["poses"][va_idx], data["intrinsics"],
-                         num_rays=cfg.num_rays, device=device)
+    val = FramesProvider(va_images, va_poses, data["intrinsics"], num_rays=cfg.num_rays,
+                         stereo_views=stereo, device=device)
     if not cfg.events:
         train = FramesProvider(train_images, poses, data["intrinsics"], num_rays=cfg.num_rays,
                                error_map=bool(cfg.error_map), device=device)
     else:
         train = EventProvider(
-            events, hf_ts, hf_poses, data["intrinsics"], data["H"], data["W"],
-            batch_size_evs=cfg.batch_size_evs, accumulate_evs=bool(cfg.accumulate_evs),
-            acc_max_num_evs=cfg.acc_max_num_evs,
+            events, hf_ts, hf_poses, data["intrinsics"], data.get("H_ev", data["H"]),
+            data.get("W_ev", data["W"]), batch_size_evs=cfg.batch_size_evs,
+            accumulate_evs=bool(cfg.accumulate_evs), acc_max_num_evs=cfg.acc_max_num_evs,
             precompute_evs_poses=bool(cfg.precompute_evs_poses),
             negative_event_sampling=bool(cfg.negative_event_sampling),
             frames=None if cfg.event_only else train_images,
             frame_poses=None if cfg.event_only else poses,
-            num_rays=cfg.num_rays, device=device)
+            num_rays=cfg.num_rays, device=device, **ev_kw)
     return train, val

@@ -17,13 +17,14 @@ Counterpart of enerf_tpu/train/trainer.py (reference nerf/utils.py:289-1416):
     best-by-metric checkpoint with the EMA weights, the eval_log JSON line
     and the divergence guard;
   - `evaluate` (PSNR, SSIM and, for event-only training, the affine (a, b)
-    log-intensity correction solved over all val images), `test`, and
+    log-intensity correction solved over all val images; the stereo rigs'
+    event camera views, rendered and written with that map), `test`, and
     `render_view` through the alive-ray inference renderer (march) or the
     staged fixed-step renderer.
 One step runs per dispatch (the JAX package's fused multi-step window,
 train/chunk.py, has no counterpart).  Images are written as PNG by the
 port's own writer (no OpenCV).  Not ported: LPIPS (reported as None),
-stereo event views, tensorboard, run diagnostics and meshes.
+tensorboard, run diagnostics and meshes.
 """
 
 import dataclasses
@@ -367,9 +368,32 @@ class Trainer:
                 write_png(os.path.join(vdir, "depth", name), _to8(d))
                 if gts[j] is not None:
                     write_png(os.path.join(vdir, "gt", f"{j:04d}.png"), _to8(gts[j]))
+        stereo = getattr(provider, "stereo_views", None)
+        if self.cfg.eval_stereo_views and stereo and save:
+            self.write_stereo_views(stereo, results.get("affine_a"), results.get("affine_b"))
         self.log(f"[eval] epoch {self.epoch}: "
                  + " ".join(f"{k}={v}" for k, v in results.items()))
         return results
+
+    def write_stereo_views(self, views, a=None, b=None):
+        """The event camera's views of a stereo rig (tumvie / eds; reference
+        utils.py:1186-1255), no metrics: under validation/event_view/,
+        ep<epoch>_<j>_raw.npy (the render), ep<epoch>_<j>.png (mapped
+        through the affine log correction (a, b) when there is one) and
+        ep<epoch>_<j>_depth.png."""
+        evdir = os.path.join(self.workspace, "validation", "event_view")
+        os.makedirs(evdir, exist_ok=True)
+        for j, v in enumerate(views):
+            img, depth = self.render_view(v["pose"], v["intrinsics"], v["H"], v["W"])
+            name = os.path.join(evdir, f"ep{self.epoch:04d}_{j:04d}")
+            np.save(name + "_raw.npy", img)
+            if a is not None:
+                lum = np.exp(self._log_intensity(img) * a + b)
+                img8 = np.rint(np.clip(lum, 0, 255)).astype(np.uint8)[..., 0]
+            else:
+                img8 = _to8(img[..., 0])
+            write_png(name + ".png", img8)
+            write_png(name + "_depth.png", _to8(depth))
 
     def test(self, provider, out_dir=None):
         """Render the test views to <out_dir> (reference Trainer.test):

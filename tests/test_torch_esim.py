@@ -279,8 +279,9 @@ def test_loader_errors_name_what_is_missing(esim_dir, tmp_path):
     os.remove(os.path.join(bare, "images", "000003.png"))
     with pytest.raises(ValueError, match="timestamps"):
         tprov.load_esim_dataset(bare)
-    for mode in ("tumvie", "eds"):
+    # an esim directory read as tumvie / eds: their loaders name the file
+    for mode, missing in (("tumvie", "calib_undist.json"), ("eds", "stamped_groundtruth_us")):
         cfg = _esim_cfg(d, tmp_path)
         cfg.mode = mode
-        with pytest.raises(NotImplementedError, match="item 3"):
+        with pytest.raises(FileNotFoundError, match=missing):
             tprov.make_providers(cfg, device="cpu")

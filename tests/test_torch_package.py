@@ -37,7 +37,9 @@ def test_package_imports_no_jax():
         "assert len(mods) >= 26, mods\n"
         "assert {'enerf_torch.ops.hashgrid', 'enerf_torch.ops.composite',\n"
         "        'enerf_torch.ops.group_gather', 'enerf_torch.render.renderer',\n"
-        "        'enerf_torch.tools.bench_gather'} <= set(mods), mods\n"
+        "        'enerf_torch.tools.bench_gather', 'enerf_torch.utils.hdf5',\n"
+        "        'enerf_torch.data.h5events', 'enerf_torch.data.tumvie',\n"
+        "        'enerf_torch.data.eds'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -74,8 +76,10 @@ def test_config_parses_tpu_flags_and_refuses_missing_paths():
     check_supported(_cfg("--negative_event_sampling", "1", "--precompute_evs_poses", "0"))
     check_supported(_cfg("--march_warmup", "10", "--event_only", "0"))
     check_supported(_cfg("--events", "0", "--event_only", "0", "--error_map"))
-    for extra in (["--bg_radius", "2"], ["--encoding", "frequency"], ["--rand_pose", "0"],
-                  ["--mode", "tumvie"]):
+    # the tumvie / eds loaders are ported (with the stereo event views)
+    for config in ("mocapDesk2/mocapDesk2_enerf.txt", "eds11/eds11_enerf.txt"):
+        check_supported(build_config(["--config", os.path.join(REPO, "configs", config)]))
+    for extra in (["--bg_radius", "2"], ["--encoding", "frequency"], ["--rand_pose", "0"]):
         with pytest.raises(NotImplementedError):
             check_supported(_cfg(*extra))
     demo = os.path.join(REPO, "configs", "synthetic_demo.txt")
