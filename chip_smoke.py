@@ -25,10 +25,13 @@ Phases (one line each; any failure exits non-zero before the result lines):
      levels, blk4, 2^19 hash budget, hidden 64, geo 15, SH 4) on the
      synthetic event scene, one epoch of 48 steps (occupancy updates at
      steps 0, 16, 32) through train(train, val, 1): a checkpoint and the
-     affine-corrected evaluation of 2 val views; then a new Trainer resumed
-     from the 'latest' checkpoint must hold the same params, EMA and step;
+     affine-corrected evaluation of 2 val views with LPIPS (alex, vgg) on
+     the card, after the run diagnostics; then a new Trainer resumed from
+     the 'latest' checkpoint must hold the same params, EMA and step;
   5. inference: one validation view through the alive-ray inference renderer;
   6. breakdown: one more step, split into its parts on the host clock;
+     then save_mesh(256, 10.0) (query, extraction, write, size) and the
+     card's marching_tets on a 64^3 grid of the field equal to the CPU's;
   7. K2 path: bench.py's march step at its reference shape (16 x 2, blk4,
      separate marches, 8192 rays x 32 samples, compact_frac 0.25, bf16,
      the ball bitfield) with fast_table_grad on (K2) and off (index_add_),
@@ -46,7 +49,14 @@ Phases (one line each; any failure exits non-zero before the result lines):
      fixed steps, the frame term), one epoch of 48 steps through
      train(train, val, 1) with a checkpoint and the evaluation of 2 val
      views (the affine correction applied to the same renders), a resumed
-     Trainer bit-equal, and one more step split into parts;
+     Trainer bit-equal, and one more step split into parts; then the
+     --gui viewer on that trainer (GUIRenderer.train_steps(16), 4
+     progressive frames, the HTTP server on an ephemeral port: GET /frame
+     a PNG of the frame's shape, GET /orbit a new pose; TurntableRecorder,
+     3 frames; K1 launches), the command lines `python -m enerf_torch
+     ... --test` on its checkpoint (test render and 256^3 mesh) and
+     `python -m enerf_torch.tools.render --traj val --n_poses 2`, and one
+     720 x 1280 LPIPS pair on the card against the CPU (relative 1e-3);
  10. frames on the march: --ff -O --event_only 0 --march_warmup 4, 8 steps:
      the trainer's mark_untrained_grid from the first frame camera (its
      share of marked cells > 0 and equal to a direct call's), 4 fixed-step
@@ -62,16 +72,17 @@ Phases (one line each; any failure exits non-zero before the result lines):
      as published (hash grid 16 x 2, 480 x 640, 30,096 rays x 512 steps)
      on the fixture, with one val index and one 16-step epoch: steps/s,
      peak memory, the checkpoint's and the evaluation's seconds (one
-     480 x 640 view), PSNR; finite losses and PSNR; one more step split
-     into its parts;
+     480 x 640 view), PSNR and LPIPS; finite losses and PSNR; one more
+     step split into its parts; save_mesh(256, 10.0);
  13. events + frames from the esim loader at the published width:
      configs/shakeCarpet1/shakeCarpet1_enerfBoth.txt (images_corrupted,
      the scene's pose offset), 8 steps: steps/s and peak memory; a
      torch.OutOfMemoryError as published is printed as the config's result
      and the phase reruns with --remat_fixed 1;
  14. frames mode on the march: --ff -O --events 0 --error_map on the
-     synthetic scene, 8 steps with an occupancy update: K1 launched by
-     the frames step, finite losses, an error map that changed;
+     synthetic scene, 8 steps with an occupancy update and --profile 2:
+     K1 launched by the frames step, finite losses, an error map that
+     changed, a torch.profiler trace of steps 3-4 that names CUDA kernels;
  15. tumvie fixture: the simulator at the event camera's 720 x 1280, 6
      frames, written by the port's save_tumvie_dataset under
      build/chip_smoke_tumvie/ (PNGs, events_left.h5, rectify_map_left.h5,
@@ -85,8 +96,9 @@ Phases (one line each; any failure exits non-zero before the result lines):
      under torch.cuda.set_sync_debug_mode("error") (the window is drawn
      on the card), 8 steps and one evaluation (a 720 x 1280 frame view
      and its stereo event view): steps/s, peak memory, each view's
-     seconds, the stereo PNG and _raw.npy, finite losses, K1 / K2 / K3
-     launches on the path; a torch.OutOfMemoryError as published is
+     seconds, LPIPS, the stereo PNG and _raw.npy, finite losses, the run
+     diagnostics (the card has no matplotlib: the numeric images only),
+     K1 / K2 / K3 launches on the path; a torch.OutOfMemoryError as published is
      printed as the config's result and the phase reruns with
      --remat_fixed 1;
  17. configs/eds11/eds11_enerf.txt as published (eds, event only, the
@@ -694,7 +706,9 @@ def phase_main_path(workspace):
     res = trainer.last_eval
     print("[main] eval: " + ", ".join(
         f"{k} {res.get(k)}" for k in ("psnr", "ssim", "affine_a", "affine_b",
-                                      "psnr_corrected", "ssim_corrected")))
+                                      "psnr_corrected", "ssim_corrected"))
+          + "; " + lpips_text(trainer))
+    print(f"[main] {diagnostics_text(trainer)}")
     if not (len(losses) == steps // cfg.log_every and np.isfinite(losses).all()):
         raise AssertionError(f"main path losses not all finite: {losses}")
     if trainer.occupancy.iter_density != 3:
@@ -1023,6 +1037,7 @@ def phase_default_path(workspace):
     preds = [trainer.render_view(v["pose"], v["intrinsics"], v["H"], v["W"])[0] for v in views]
     corr = trainer.affine_corrected(preds, [v["gt"] for v in views])
     print("[default] eval (trainer): " + ", ".join(f"{k} {res.get(k)}" for k in ("psnr", "ssim"))
+          + "; " + lpips_text(trainer)
           + "; affine-corrected (the same renders): "
           + ", ".join(f"{k} {corr[k]}" for k in ("affine_a", "affine_b", "psnr_corrected",
                                                  "ssim_corrected")))
@@ -1033,6 +1048,235 @@ def phase_default_path(workspace):
                                         corr["psnr_corrected"], corr["ssim_corrected"])):
         raise AssertionError(f"evaluation gave no finite metrics: {res}, {corr}")
     return trainer, train
+
+
+def lpips_text(trainer):
+    """The last evaluation's LPIPS keys and seconds a view; raises unless
+    both are finite."""
+    import numpy as np
+    res = trainer.last_eval
+    keys = [k for k in res if k.startswith("lpips_")]
+    if len(keys) != 2 or not np.isfinite([res[k] for k in keys]).all():
+        raise AssertionError(f"evaluation without finite LPIPS: {res}")
+    return (", ".join(f"{k} {res[k]:.6f}" for k in keys)
+            + f" (LPIPS {trainer.lpips_seconds:.3f} s a view)")
+
+
+def diagnostics_text(trainer):
+    """What dump_run_diagnostics wrote at the start of train(); raises on a
+    failure or a missing numeric image."""
+    got = [p if p.startswith("(") else os.path.basename(p) for p in trainer.diagnostics]
+    if any(p.startswith("(failed") for p in got) or not {
+            "ev_accumulation.png", "ev_histogram.png"} <= set(got):
+        raise AssertionError(f"run diagnostics incomplete: {trainer.diagnostics}")
+    return f"run diagnostics in {trainer.diagnostics_seconds:.3f} s: {got}"
+
+
+def phase_mesh(tag, trainer, check=False):
+    """Trainer.save_mesh(256, 10.0) on the card: the density query, the
+    extraction and the write timed apart, the mesh's size and the OBJ's
+    bytes.  With `check`, the card's marching_tets on a 64^3 grid of the
+    same field against the CPU's on the same u, at the threshold 10 and at
+    the grid's median (many crossing cells): equal vertices and triangles;
+    then the median mesh's OBJ write and, at scale, the card's extraction
+    on a 256^3 grid of the field at its median, timed."""
+    import torch
+    from enerf_torch.models.field import field_density
+    from enerf_torch.utils.mesh import extract_fields, marching_tets, to_world, write_obj
+
+    path = trainer.save_mesh(resolution=256, threshold=10.0)
+    (V, T), secs = trainer.mesh_size, trainer.mesh_seconds
+    print(f"[{tag}] save_mesh(256, 10.0): density query of 16,777,216 points "
+          f"{secs['query']:.3f} s, extraction {secs['extract']:.3f} s, OBJ write "
+          f"{secs['write']:.3f} s; {V} vertices, {T} triangles, "
+          f"{os.path.basename(path)} {os.path.getsize(path)} bytes")
+    if not path.endswith(f"_ep{trainer.epoch:04d}.obj"):
+        raise AssertionError(f"mesh written to {path}")
+    if not check:
+        return
+    b = trainer.static.bound
+    with torch.no_grad():
+        u = extract_fields([-b] * 3, [b] * 3, 64, lambda p: field_density(
+            trainer.state.ema_params, trainer.static, p)[0], device=trainer.device)
+    for thr in (10.0, float(u.median())):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        vc, tc = marching_tets(u, thr)
+        torch.cuda.synchronize()
+        card_s = time.time() - t0
+        t0 = time.time()
+        vh, th = marching_tets(u.cpu(), thr)
+        cpu_s = time.time() - t0
+        same = torch.equal(vc.cpu(), vh) and torch.equal(tc.cpu(), th)
+        print(f"[{tag}] marching_tets 64^3 at threshold {thr:.6g}: card {card_s:.3f} s, CPU "
+              f"{cpu_s:.3f} s, {len(vh)} vertices / {len(th)} triangles; the card's mesh "
+              f"{'equals' if same else 'DIFFERS FROM'} the CPU's")
+        if not same:
+            raise AssertionError("the card's marching_tets differs from the CPU's")
+    # the writer at scale: the last (median) mesh as OBJ
+    t0 = time.time()
+    obj = os.path.join(trainer.workspace, "meshes", "median_64.obj")
+    write_obj(obj, to_world(vh, [-b] * 3, [b] * 3, 64), th)
+    print(f"[{tag}] write_obj of that mesh: {time.time() - t0:.3f} s, {os.path.getsize(obj)} bytes")
+    # the extraction at scale: a 256^3 grid of the same field at its median
+    with torch.no_grad():
+        u = extract_fields([-b] * 3, [b] * 3, 256, lambda p: field_density(
+            trainer.state.ema_params, trainer.static, p)[0], device=trainer.device)
+    thr = float(u.median())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    v, t = marching_tets(u, thr)
+    torch.cuda.synchronize()
+    print(f"[{tag}] marching_tets 256^3 at the grid's median {thr:.6g} on the card: "
+          f"{time.time() - t0:.3f} s, {len(v)} vertices / {len(t)} triangles")
+    if not (len(t) and torch.isfinite(v).all()):
+        raise AssertionError("no finite mesh at the median of the 256^3 grid")
+
+
+def phase_lpips():
+    """One 720 x 1280 RGB pair through LPIPS alex and vgg on the card, as
+    the evaluation runs it (cuDNN's TF32 off for the call), and on the CPU:
+    the card within relative 1e-3 of the CPU (cuDNN chooses its own
+    convolution algorithms and summation orders).  Beside it, the card with
+    TF32 on, the deviation that made the call turn it off."""
+    import contextlib
+    from unittest import mock
+    import numpy as np
+    import torch
+    from enerf_torch.train import lpips as L
+
+    rng = np.random.default_rng(0)
+    a = rng.uniform(size=(720, 1280, 3)).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.normal(size=a.shape), 0, 1).astype(np.float32)
+    out = {}
+    for net in ("alex", "vgg"):
+        L.lpips_distance(a, b, net, "cuda")  # weights to the card, cuDNN's setup
+        torch.cuda.synchronize()
+        t0 = time.time()
+        card = L.lpips_distance(a, b, net, "cuda")
+        card_ms = (time.time() - t0) * 1e3
+        t0 = time.time()
+        cpu = L.lpips_distance(a, b, net, "cpu")
+        cpu_s = time.time() - t0
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            with mock.patch.object(L, "_no_tf32", contextlib.nullcontext):
+                tf32 = L.lpips_distance(a, b, net, "cuda")
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+        rel, rel_tf32 = abs(card - cpu) / cpu, abs(tf32 - cpu) / cpu
+        out[net] = rel
+        print(f"[lpips] {net} 720x1280 pair: card {card:.8f} in {card_ms:.1f} ms (host copies "
+              f"included), CPU {cpu:.8f} in {cpu_s:.2f} s: relative difference {rel:.3e} "
+              f"(tolerance 1e-3); with TF32 on the card {tf32:.8f}, {rel_tf32:.3e}")
+        if not rel <= 1e-3:
+            raise AssertionError(f"LPIPS {net} on the card {card} vs the CPU {cpu}")
+    return out
+
+
+def phase_viewer(trainer, train, workspace):
+    """The --gui viewer on phase 9's trainer: GUIRenderer.train_steps(16),
+    4 progressive frames, the HTTP server on an ephemeral port (GET /frame
+    decodes to a PNG of the frame's shape, GET /orbit moves the camera),
+    TurntableRecorder's 3 frames; K1 launches counted."""
+    import threading
+    import urllib.request
+    import numpy as np
+    from enerf_torch import viewer
+    from enerf_torch.ops import fused_mlp
+    from enerf_torch.utils.png import decode_png
+
+    cfg = trainer.cfg
+    fused_mlp.fused_field_head.launches = 0
+    gui = viewer.GUIRenderer(trainer, train, W=cfg.W, H=cfg.H, radius=cfg.radius,
+                             fovy=cfg.fovy, max_spp=cfg.max_spp)
+    t0 = trainer._clock()
+    loss = gui.train_steps(16)
+    train_s = trainer._clock() - t0
+    frames = []
+    for _ in range(4):
+        t0 = trainer._clock()
+        img = gui.render_frame()
+        frames.append((trainer._clock() - t0, gui.spp, gui.downscale))
+    print(f"[viewer] train_steps(16) {train_s:.3f} s (mean loss {loss:.5f}); 4 frames of "
+          f"{img.shape}: " + ", ".join(f"{t * 1e3:.1f} ms spp {n} downscale {d:.3f}"
+                                       for t, n, d in frames))
+    if not (np.isfinite(loss) and [n for _, n, _ in frames] == [1, 2, 3, 4]
+            and np.isfinite(img).all()):
+        raise AssertionError(f"viewer frames: loss {loss}, {frames}")
+    server = viewer.make_viewer_server(gui, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        t0 = time.time()
+        with urllib.request.urlopen(base + "/frame", timeout=300) as r:
+            png = decode_png(r.read())
+        frame_s = time.time() - t0
+        shape = gui._accum.shape[:2]  # the frame the server rendered
+        pose = gui.cam.pose
+        with urllib.request.urlopen(base + "/orbit?dx=16&dy=4&dz=1", timeout=60) as r:
+            status = r.status
+        moved = not np.allclose(gui.cam.pose, pose)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    print(f"[viewer] server on port {server.server_address[1]}: GET /frame (16 steps + a frame) "
+          f"{frame_s:.3f} s, a PNG of {png.shape}; GET /orbit {status}, pose "
+          f"{'moved' if moved else 'UNCHANGED'}")
+    if png.shape[:2] != shape or not moved or thread.is_alive():
+        raise AssertionError(f"viewer server: PNG {png.shape} for a {shape} frame, "
+                             f"moved {moved}, server thread alive {thread.is_alive()}")
+    t0 = time.time()
+    out = viewer.TurntableRecorder(trainer, W=cfg.W, H=cfg.H, radius=cfg.radius,
+                                   fovy=cfg.fovy).record(os.path.join(workspace, "turntable"), 3)
+    names = sorted(os.listdir(out))
+    k1 = fused_mlp.fused_field_head.launches
+    print(f"[viewer] TurntableRecorder 3 frames in {time.time() - t0:.3f} s: {names}; K1 "
+          f"launches on the viewer path {k1} (the default path has no fused head)")
+    if names != ["0000.png", "0001.png", "0002.png"]:
+        raise AssertionError(f"turntable frames {names}")
+    return k1
+
+
+def phase_cli(workspace):
+    """The two command lines on phase 9's checkpoint: python -m enerf_torch
+    ... --test (the test render and the 256^3 mesh, in its own workspace),
+    and python -m enerf_torch.tools.render --model_dir <phase 9's
+    workspace> --traj val --n_poses 2."""
+    import glob as _glob
+    env = dict(os.environ, PYTHONPATH=REPO)
+    ckpt = sorted(_glob.glob(os.path.join(workspace, "checkpoints", "*_ep0001.npz")))
+    out_root = workspace + "_cli"
+    runs = {
+        "test": [sys.executable, "-m", "enerf_torch", "--config",
+                 os.path.join(REPO, "configs", "synthetic_demo.txt"), "--event_only", "0",
+                 "--seed", "0", "--val_idxs", "0", "--val_idxs", "20", "--outdir", out_root,
+                 "--ckpt", ckpt[0] if ckpt else "missing", "--test"],
+        "render": [sys.executable, "-m", "enerf_torch.tools.render", "--model_dir", workspace,
+                   "--traj", "val", "--n_poses", "2"],
+    }
+    for name, argv in runs.items():
+        t0 = time.time()
+        out = subprocess.run(argv, cwd=REPO, env=env, capture_output=True, text=True,
+                             timeout=600)
+        if out.returncode:
+            print(out.stdout[-4000:], out.stderr[-4000:])
+            raise AssertionError(f"{' '.join(argv[1:4])} ... exited {out.returncode}")
+        keep = [ln for ln in out.stdout.splitlines()
+                if ln.startswith(("[ckpt]", "[test]", "[mesh]", "wrote"))]
+        print(f"[cli] {' '.join(argv[1:3])} ... {argv[-1]}: exit 0 in {time.time() - t0:.1f} s; "
+              + " | ".join(keep))
+    ws = os.path.join(out_root, "testweek", "synthetic_demo")
+    want = [os.path.join(ws, "results", "0000.png"),
+            os.path.join(ws, "meshes", "synthetic_demo_ep0001.obj")]
+    want += [os.path.join(workspace, "renders", f"000{i}{s}") for i in (0, 1)
+             for s in (".png", "_depth.png", "_raw.npy")]
+    missing = [p for p in want if not os.path.exists(p)]
+    if missing:
+        raise AssertionError(f"the command lines did not write {missing}")
 
 
 def phase_default_breakdown(trainer, train):
@@ -1294,13 +1538,14 @@ def phase_esim_frames(datadir, workspace):
           f"{steps / secs['steps']:.4f} steps/s (the first included); peak memory {peak:.2f} GiB; "
           f"checkpoint {secs.get('checkpoint', float('nan')):.3f} s; evaluation of one "
           f"{train.H}x{train.W} view {secs.get('evaluate', float('nan')):.3f} s; "
-          f"psnr {res.get('psnr')} ssim {res.get('ssim')}; losses "
+          f"psnr {res.get('psnr')} ssim {res.get('ssim')}; {lpips_text(trainer)}; losses "
           + ", ".join(f"{x:.5f}" for x in losses))
     if not (len(losses) == steps and np.isfinite(losses).all()):
         raise AssertionError(f"spiral1_nerf losses not all finite: {losses}")
     if not np.isfinite(res.get("psnr", np.nan)):
         raise AssertionError(f"spiral1_nerf evaluation gave no finite psnr: {res}")
     phase_frames_breakdown(trainer, train)
+    phase_mesh("esim-frames", trainer)
 
 
 def device_busy(fn):
@@ -1403,7 +1648,7 @@ def phase_frames_march(workspace):
     from enerf_torch.train.trainer import Trainer
 
     cfg = smoke_config(workspace, "--events", "0", "--event_only", "0", "--error_map",
-                       "--log_every", "1")
+                       "--log_every", "1", "--profile", "2")
     trainer = Trainer(cfg, workspace=workspace)
     train, _ = make_providers(cfg)
     train.steps_per_epoch = 8
@@ -1428,6 +1673,20 @@ def phase_frames_march(workspace):
         raise AssertionError(f"frames step on the march: K1 launches {launches}, error map "
                              f"cells changed {changed}, occupancy updates "
                              f"{trainer.occupancy.iter_density}")
+    # --profile 2: the trainer traced steps 3-4 into <workspace>/profile/
+    path = trainer.profile_path
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + e.get("dur", 0)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[frames-march] --profile 2: {os.path.relpath(path, REPO)}, {os.path.getsize(path)} "
+          f"bytes, {len(events)} events, {len(kernels)} distinct CUDA kernels; the longest "
+          + "; ".join(f"{n[:60]} {us / 1e3:.2f} ms" for n, us in top))
+    if not kernels:
+        raise AssertionError(f"the --profile trace {path} names no CUDA kernel")
     return launches
 
 
@@ -1562,6 +1821,7 @@ def phase_stereo(tag, config, datadir, workspace, steps):
           + ", ".join(f"{h}x{w} {t:.3f} s" for h, w, t in trainer.view_seconds)
           + f" (frame view(s), then stereo view(s)); psnr_corrected "
           f"{res.get('psnr_corrected')}, affine a {res.get('affine_a')} b {res.get('affine_b')}; "
+          f"{lpips_text(trainer)}; "
           f"validation/event_view/: {written}; K1 / K2 / K3 launches {launches}; losses "
           + ", ".join(f"{aux['loss']:.5f}" for _, aux in hist))
     losses = [[v for k, v in aux.items() if k.startswith("loss")] for _, aux in hist]
@@ -1575,6 +1835,8 @@ def phase_stereo(tag, config, datadir, workspace, steps):
     raw = np.load(os.path.join(evdir, "ep0001_0000_raw.npy"))
     if not (raw.shape == (train.H, train.W, 1) and np.isfinite(raw).all()):
         raise AssertionError(f"{name}: stereo raw render {raw.shape} not finite")
+    if tag == "tumvie":
+        print(f"[{tag}] {diagnostics_text(trainer)}")
 
 
 def main():
@@ -1608,6 +1870,7 @@ def main():
         phase_resume(trainer, workspace)
         phase_inference(trainer, val)
         phase_breakdown(trainer, train)
+        phase_mesh("main", trainer, check=True)
         del trainer, train, val
         k2_launches, k2_on_path = phase_k2_path()
         phase_no_event(os.path.join(REPO, "build", "chip_smoke_noev"))
@@ -1615,7 +1878,10 @@ def main():
         trainer, train = phase_default_path(workspace)
         phase_resume(trainer, workspace)
         phase_default_breakdown(trainer, train)
+        k1_viewer = phase_viewer(trainer, train, workspace)
         del trainer, train
+        phase_cli(workspace)
+        phase_lpips()
         phase_march_warmup(os.path.join(REPO, "build", "chip_smoke_warmup"))
         datadir, carpet, esim_data = phase_esim_fixture(
             os.path.join(REPO, "build", "chip_smoke_esim"))
@@ -1651,6 +1917,7 @@ def main():
         "share_of_bound": bf["share_of_bound"], "kernel_ms": bf["kernel_ms"],
         "pack_ms": bf["pack_ms"], "host_ms": bf["host_ms"], "differ_share": bf["differ_share"],
         "float32": res["float32"], "launches_frames_march": k1_frames,
+        "launches_viewer": k1_viewer,
     }, dict({
         "name": "block_table_grad", "route": "cuda",
         "source": "enerf_torch/csrc/block_table_grad.cu",

@@ -1,18 +1,22 @@
 """CLI entry point of the port: `python -m enerf_torch --config FILE [flags]`.
 
 Parses the same configs and flags as the JAX package's main.py (the
-port's own config copy) and follows its flow, without the GUI and the
-mesh: the frame selection of the config (`get_select_frames`), resume from
-`--ckpt` ('latest' by default, 'scratch' for none), train for
+port's own config copy) and follows its flow (main.py:87-106): the frame
+selection of the config (`get_select_frames`), resume from `--ckpt`
+('latest' by default, 'scratch' for none), train for
 ceil(iters / steps_per_epoch) epochs with evaluation and checkpoints, then
-render the test views; `--test` renders the test views only.
-`--device cpu` runs the plain PyTorch path; the default is the CUDA device.
+render the test views and export the mesh (256^3, threshold 10);
+`--test` renders the test views and exports the mesh only; `--gui` serves
+the web viewer on http://127.0.0.1:7007 instead (training between frames
+unless `--test`).  `--device cpu` runs the plain PyTorch path; the default
+is the CUDA device.
 
 Examples (the synthetic event scene on the --ff -O path; a published esim
 config on a dataset directory):
   python -m enerf_torch --config configs/synthetic_demo.txt --ff -O --iters 200
   python -m enerf_torch --config configs/spiral1/spiral1_nerf.txt --datadir DATA/spiral1 \
       --outdir output
+  python -m enerf_torch --config configs/synthetic_demo.txt --ff -O --gui
 """
 
 import argparse
@@ -54,13 +58,22 @@ def main(argv=None):
     select_frames = get_select_frames(cfg)
     trainer = Trainer(cfg, device=known.device, use_checkpoint=cfg.ckpt)
     train_provider, val_provider = make_providers(cfg, select_frames, device=trainer.device)
+    if cfg.gui:
+        from enerf_torch.viewer import GUIRenderer, serve_web_viewer
+        gui = GUIRenderer(trainer, provider=None if cfg.test else train_provider,
+                          W=cfg.W, H=cfg.H, radius=cfg.radius, fovy=cfg.fovy,
+                          max_spp=cfg.max_spp)
+        serve_web_viewer(gui)
+        return
     if cfg.test:
         trainer.test(val_provider)
+        trainer.save_mesh(resolution=256, threshold=10.0)
         return
     max_epoch = int(np.ceil(cfg.iters / train_provider.steps_per_epoch))
     trainer.log(f"max epochs = {max_epoch}")
     trainer.train(train_provider, val_provider, max_epoch)
     trainer.test(val_provider)
+    trainer.save_mesh(resolution=256, threshold=10.0)
 
 
 if __name__ == "__main__":

@@ -6,9 +6,9 @@ own copy) runs once when a dataset is built; `interp_pose_device` (slerp +
 cubic Hermite on tensors) computes poses per batch instead, for
 precompute_evs_poses=0 and for the no-event pair's random times.
 `get_hom_trafos` and `nerf_matrix_to_ngp` are the loaders' pose
-conventions, and `preprocess_pose_array_sphere` the tumvie loader's
-sphere preprocessing (pp_poses_sphere=1): copies of the JAX package's
-numpy functions.
+conventions, `preprocess_pose_array_sphere` the tumvie loader's
+sphere preprocessing (pp_poses_sphere=1) and `spiral_path` the render
+tool's spiral: copies of the JAX package's numpy functions.
 """
 
 import numpy as np
@@ -145,6 +145,21 @@ def poses_avg(poses):
     vec2 = normalize(poses[:, :3, 2].sum(0))
     up = poses[:, :3, 1].sum(0)
     return viewmatrix(vec2, up, center)
+
+
+def spiral_path(c2w_center, radii, focus_depth, n_poses=120, n_rots=2):
+    """Spiral render path [n_poses, 4, 4] around a center pose
+    (pose_utils.py:597-607 role)."""
+    c2w = np.asarray(c2w_center, np.float64)
+    out = []
+    for t in np.linspace(0, 2 * np.pi * n_rots, n_poses, endpoint=False):
+        center = c2w[:3, 3] + c2w[:3, :3] @ (
+            np.asarray([np.cos(t), -np.sin(t), -np.sin(0.5 * t)]) * np.asarray(radii))
+        z = normalize(c2w[:3, :3] @ np.asarray([0, 0, focus_depth]) + c2w[:3, 3] - center)
+        pose = np.eye(4)
+        pose[:3, :] = viewmatrix(z, c2w[:3, 1], center)
+        out.append(pose)
+    return np.stack(out)
 
 
 def recenter_poses(poses):

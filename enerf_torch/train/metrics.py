@@ -1,4 +1,4 @@
-"""Evaluation metrics: PSNR, SSIM and the affine log-intensity correction.
+"""Evaluation metrics: PSNR, SSIM, the affine log-intensity correction, LPIPS.
 
 The port's own copy of the numpy code of enerf_tpu/train/metrics.py
 (reference nerf/utils.py:44-71, 252-287; skimage SSIM):
@@ -9,12 +9,17 @@ The port's own copy of the numpy code of enerf_tpu/train/metrics.py
     predicted log intensity onto the ground truth's over all val images,
     with the reference's nan fallbacks: event-only training is supervised
     only up to an affine map in log space.
-LPIPS is not ported: the JAX package's fallback uses seeded random
-features that no other framework reproduces, so the port reports None.
+  - `compute_lpips` (alex, vgg) through the port's own LPIPS
+    (train/lpips.py) on the caller's device, and `lpips_label`: '' with
+    calibrated weights, '_rand' with the seeded random features (the port's
+    own seeds: its `_rand` values are not the JAX package's).
 """
 
 import numpy as np
 from scipy.ndimage import uniform_filter
+
+from enerf_torch.backend import resolve_device
+from enerf_torch.train.lpips import lpips_distance, lpips_is_calibrated  # noqa: F401
 
 
 def psnr(pred, gt, max_val=1.0):
@@ -70,6 +75,20 @@ def solve_normal_equations(preds_log, gts_log):
     if np.isnan(a):
         a = 5.0
     return float(a), float(b)
+
+
+def compute_lpips(pred, gt, rgb_channels=3, device=None):
+    """(alex, vgg) LPIPS of two [H, W, C] images in [0, 1] (reference
+    utils.py:40-41, 1096-1112), on `device` (None: the card).  Grayscale
+    (rgb_channels 1) is replicated to 3 channels, as the reference does."""
+    device = resolve_device(device)
+    return (lpips_distance(pred, gt, "alex", device), lpips_distance(pred, gt, "vgg", device))
+
+
+def lpips_label():
+    """Suffix of the eval keys: '' for calibrated weights, '_rand' for the
+    seeded random features."""
+    return "" if lpips_is_calibrated() else "_rand"
 
 
 class PSNRMeter:

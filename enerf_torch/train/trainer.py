@@ -8,23 +8,27 @@ Counterpart of enerf_tpu/train/trainer.py (reference nerf/utils.py:289-1416):
   - on the march path, `mark_untrained_grid` from the provider's frame
     poses at the start of `train`, and the occupancy update every 16 steps
     *before* the step;
-  - the per-step loop: the event step, or with events=0 the frames step
-    followed by the error map's update; the fixed-step renderer for the
-    first march_warmup steps, the `[train]` log line and the no-event
-    epoch gate;
+  - at the start of `train`, the run diagnostics (utils/plotting.py) in
+    <workspace>/diagnostics;
+  - the per-step loop of `train_step` (JAX's `_step_fn` with the loop's
+    cadence, also the viewer's step): the occupancy update, the event
+    step, or with events=0 the frames step followed by the error map's
+    update; the fixed-step renderer for the first march_warmup steps; then
+    the `[train]` log line, the no-event epoch gate and the `--profile N`
+    trace of steps N+1..2N (utils/profiling.py, <workspace>/profile/);
   - the per-epoch tail: epoch loss stats, a rotating checkpoint every
     ckpt_interval epochs, evaluation every eval_interval epochs, the
     best-by-metric checkpoint with the EMA weights, the eval_log JSON line
     and the divergence guard;
-  - `evaluate` (PSNR, SSIM and, for event-only training, the affine (a, b)
-    log-intensity correction solved over all val images; the stereo rigs'
-    event camera views, rendered and written with that map), `test`, and
-    `render_view` through the alive-ray inference renderer (march) or the
-    staged fixed-step renderer.
+  - `evaluate` (PSNR, SSIM, LPIPS alex / vgg on the trainer's device and,
+    for event-only training, the affine (a, b) log-intensity correction
+    solved over all val images; the stereo rigs' event camera views,
+    rendered and written with that map), `test`, `render_view` through the
+    alive-ray inference renderer (march) or the staged fixed-step
+    renderer, and `save_mesh` (the density isosurface, utils/mesh.py).
 One step runs per dispatch (the JAX package's fused multi-step window,
 train/chunk.py, has no counterpart).  Images are written as PNG by the
-port's own writer (no OpenCV).  Not ported: LPIPS (reported as None),
-tensorboard, run diagnostics and meshes.
+port's own writer (no OpenCV).  Not ported: tensorboard.
 """
 
 import dataclasses
@@ -38,7 +42,7 @@ import torch
 from enerf_torch.backend import resolve_device
 from enerf_torch.config import TPU_ONLY, check_supported
 from enerf_torch.data.rays import get_rays_full
-from enerf_torch.models.field import FieldStatic, init_field_params
+from enerf_torch.models.field import FieldStatic, field_density, init_field_params
 from enerf_torch.render.march import pack_bitfield, render_rays_infer
 from enerf_torch.render.occupancy import init_occupancy, mark_untrained_grid, update_occupancy
 from enerf_torch.render.renderer import render_rays_staged
@@ -49,6 +53,9 @@ from enerf_torch.train.state import TrainState
 from enerf_torch.train.step import (
     StepStatics, train_step_events, train_step_frames, warm_statics,
 )
+from enerf_torch.utils import profiling
+from enerf_torch.utils.mesh import extract_fields, marching_tets, to_world, write_obj, write_ply
+from enerf_torch.utils.plotting import dump_run_diagnostics
 from enerf_torch.utils.png import write_png
 
 
@@ -57,7 +64,9 @@ def _to8(img):
 
 
 class Trainer:
-    def __init__(self, cfg, device=None, workspace=None, use_checkpoint=None):
+    def __init__(self, cfg, device=None, workspace=None, use_checkpoint=None, snapshot=True):
+        # snapshot=False: a read-only use of a trained workspace (the render
+        # tool) keeps its args.json as training wrote it
         self.device = resolve_device(device)
         self.cfg = check_supported(cfg)
         # reference main_nerf.py:46-52: --ff/--tcnn force half precision;
@@ -116,8 +125,9 @@ class Trainer:
         self.workspace = workspace or os.path.join(cfg.outdir, cfg.expweek, cfg.expname)
         os.makedirs(self.workspace, exist_ok=True)
         self.log_path = os.path.join(self.workspace, "log.txt")
-        with open(os.path.join(self.workspace, "args.json"), "w") as f:
-            json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+        if snapshot:
+            with open(os.path.join(self.workspace, "args.json"), "w") as f:
+                json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
         self.ckpt = CheckpointManager(os.path.join(self.workspace, "checkpoints"),
                                       name=cfg.expname, max_keep=cfg.max_keep_ckpt,
                                       async_save=bool(cfg.async_ckpt))
@@ -127,11 +137,15 @@ class Trainer:
         self.history = []     # (step, {loss term: float}) of every logged step
         self.last_eval = {}   # the results of the last evaluate() in train()
         self.epoch_seconds = {}  # the last epoch's steps and tail, synchronized
+        self.lpips_seconds = None  # the last evaluation's LPIPS seconds per view
+        self.mesh_seconds = {}  # the last save_mesh's query, extraction and write
+        self.diagnostics = []  # what dump_run_diagnostics wrote at the start of train,
+        self.diagnostics_seconds = None  # and its seconds
+        self.mesh_size = None  # (vertices, triangles) of the last save_mesh
+        self.profile_path = None  # the --profile trace, once written
         self._guard_strikes = 0
         self.log(f"[port] device {self.device}; ignoring TPU-only options: "
                  + ", ".join(f"{k}={getattr(cfg, k)}" for k in TPU_ONLY))
-        self.log("[port] LPIPS is not ported: evaluation reports lpips_alex and "
-                 "lpips_vgg as None")
 
         if use_checkpoint and use_checkpoint != "scratch":
             path = self.ckpt.resolve(use_checkpoint)
@@ -159,6 +173,11 @@ class Trainer:
         global_step = self.state.step
         steps_per_epoch = getattr(provider, "steps_per_epoch", 100)
         t_start, start_step = time.time(), global_step
+        t0 = self._clock()
+        self.diagnostics = dump_run_diagnostics(self.workspace, provider)
+        self.diagnostics_seconds = self._clock() - t0
+        for p in self.diagnostics:
+            self.log(f"[diag] {p}")
         if self.occupancy is not None and hasattr(provider, "train_poses"):
             self.occupancy = mark_untrained_grid(self.occupancy, provider.train_poses,
                                                  provider.intrinsics, cfg.bound)
@@ -177,6 +196,25 @@ class Trainer:
             self.history.append((step, aux))
             return loss
 
+        prof = {"session": None, "until": None, "done": cfg.profile <= 0}
+        prof_dir = os.path.join(self.workspace, "profile")
+
+        def maybe_profile(step, end=False):
+            """--profile K: trace steps K+1..2K (or to the end of train)."""
+            if prof["done"]:
+                return
+            k = cfg.profile
+            if prof["session"] is None and step >= k and not end:
+                self._clock()
+                prof["session"] = profiling.start_trace(self.device.type == "cuda")
+                prof["until"] = step + k
+            elif prof["session"] is not None and (step >= prof["until"] or end):
+                self._clock()
+                self.profile_path = profiling.stop_trace(prof["session"], prof_dir)
+                prof["done"] = True
+                self.log(f"[profile] trace of steps {prof['until'] - k + 1}-{step} -> "
+                         f"{self.profile_path}")
+
         def timed(name, fn, *args):
             t0 = self._clock()
             out = fn(*args)
@@ -191,21 +229,9 @@ class Trainer:
             epoch_losses, self.epoch_seconds = [], {}
             t_steps = self._clock()
             for _ in range(steps_per_epoch):
-                freeze = cfg.occ_freeze_after > 0 and global_step >= cfg.occ_freeze_after
-                if self.occupancy is not None and global_step % 16 == 0 and not freeze:
-                    self.occupancy = update_occupancy(
-                        self.state.params, self.static, self.occupancy,
-                        self.generator, density_scale=cfg.density_scale,
-                        density_thresh=cfg.density_thresh)
-                batch = provider.train_step_batch(self.generator)
-                # the march_warmup phase: uniform fixed-step renders first
-                ss = warm_statics(self.ss) if global_step < cfg.march_warmup else self.ss
-                occ = self.occupancy.occ_bitfield if self.occupancy is not None else None
-                step_fn = train_step_events if cfg.events else train_step_frames
-                aux = step_fn(self.state, batch, ss, occ, generator=self.generator)
-                if cfg.error_map and hasattr(provider, "update_error_map"):
-                    provider.update_error_map(aux["per_ray_loss"])
+                aux = self.train_step(provider)
                 global_step += 1
+                maybe_profile(global_step)
                 if global_step % cfg.log_every == 0:
                     epoch_losses.append(log_aux(aux, global_step))
             self.epoch_seconds["steps"] = self._clock() - t_steps
@@ -232,8 +258,30 @@ class Trainer:
                     break
             self.log(f"[epoch] {epoch}: " + ", ".join(
                 f"{k} {v:.2f} s" for k, v in self.epoch_seconds.items()))
+        maybe_profile(global_step, end=True)
         self.ckpt.wait()
         self.log(f"[train] done at epoch {self.epoch}, step {global_step}")
+
+    def train_step(self, provider):
+        """One training step at self.state.step (the counterpart of JAX's
+        `_step_fn` with the loop's cadence): the occupancy update every 16
+        steps before the step (march path, until occ_freeze_after), one
+        batch, the event or frames step (the fixed-step renderer for the
+        first march_warmup steps), the error map's update.  Returns aux."""
+        cfg, step = self.cfg, self.state.step
+        freeze = cfg.occ_freeze_after > 0 and step >= cfg.occ_freeze_after
+        if self.occupancy is not None and step % 16 == 0 and not freeze:
+            self.occupancy = update_occupancy(
+                self.state.params, self.static, self.occupancy, self.generator,
+                density_scale=cfg.density_scale, density_thresh=cfg.density_thresh)
+        batch = provider.train_step_batch(self.generator)
+        ss = warm_statics(self.ss) if step < cfg.march_warmup else self.ss
+        occ = self.occupancy.occ_bitfield if self.occupancy is not None else None
+        step_fn = train_step_events if cfg.events else train_step_frames
+        aux = step_fn(self.state, batch, ss, occ, generator=self.generator)
+        if cfg.error_map and hasattr(provider, "update_error_map"):
+            provider.update_error_map(aux["per_ray_loss"])
+        return aux
 
     def _clock(self):
         """Host seconds, once the device's queued work has finished."""
@@ -351,7 +399,15 @@ class Trainer:
         if have_gt:
             results["psnr"] = float(np.mean([M.psnr(preds[i], gts[i]) for i in have_gt]))
             results["ssim"] = float(np.mean([M.ssim(preds[i], gts[i]) for i in have_gt]))
-            results["lpips_alex"] = results["lpips_vgg"] = None  # not ported
+            # per-image LPIPS on the trainer's device, averaged over the val
+            # set (reference utils.py:1096-1112 computes alex + vgg per image)
+            t0 = self._clock()
+            lp = [M.compute_lpips(preds[i], gts[i], self.static.out_dim_color, self.device)
+                  for i in have_gt]
+            self.lpips_seconds = (self._clock() - t0) / len(have_gt)
+            suf = M.lpips_label()
+            results[f"lpips_alex{suf}"] = float(np.mean([a for a, _ in lp]))
+            results[f"lpips_vgg{suf}"] = float(np.mean([v for _, v in lp]))
         if self.cfg.event_only and have_gt:
             # affine log correction over ALL val images; with the frame
             # term the frames fix the scale, and JAX corrects nothing
@@ -406,3 +462,32 @@ class Trainer:
             write_png(os.path.join(out_dir, f"{j:04d}_depth.png"), _to8(depth))
             np.save(os.path.join(out_dir, f"{j:04d}_raw.npy"), img)
         self.log(f"[test] wrote renders to {out_dir}")
+
+    @torch.no_grad()
+    def save_mesh(self, path=None, resolution=256, threshold=10.0):
+        """The density isosurface of the EMA weights (reference save_mesh,
+        utils.py:712-732): field_density on a resolution^3 grid over the
+        bound's box, marching tetrahedra on the trainer's device, written
+        to meshes/{expname}_ep{epoch:04d}.obj (.ply by suffix).  The
+        query, extraction and write seconds go to self.mesh_seconds."""
+        path = path or os.path.join(self.workspace, "meshes",
+                                    f"{self.cfg.expname}_ep{self.epoch:04d}.obj")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        bmin, bmax = [-self.static.bound] * 3, [self.static.bound] * 3
+        params = self.state.ema_params
+
+        def query(pts):
+            return field_density(params, self.static, pts)[0]
+
+        t0 = self._clock()
+        u = extract_fields(bmin, bmax, resolution, query, device=self.device)
+        t1 = self._clock()
+        verts, tris = marching_tets(u, threshold)
+        verts = to_world(verts, bmin, bmax, resolution)
+        t2 = self._clock()
+        (write_ply if path.endswith(".ply") else write_obj)(path, verts, tris)
+        self.mesh_seconds = {"query": t1 - t0, "extract": t2 - t1, "write": time.time() - t2}
+        self.mesh_size = (len(verts), len(tris))
+        self.log(f"[mesh] {len(verts)} verts / {len(tris)} tris -> {path} ("
+                 + ", ".join(f"{k} {v:.2f} s" for k, v in self.mesh_seconds.items()) + ")")
+        return path

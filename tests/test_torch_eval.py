@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from torch_parity import n, params_np, t
+from torch_parity import carry_lpips_from_jax, n, params_np, t
 
 from enerf_tpu import config as jconfig
 from enerf_tpu.data import provider as jprov, synthetic as jsyn
@@ -103,15 +103,18 @@ def test_evaluate_metric_tail_matches_jax(tmp_path, monkeypatch):
     preds = np.clip(0.7 * gts + 0.2 + rng.normal(scale=0.05, size=gts.shape), 0, 1
                     ).astype(np.float32)
     jt, tt = _trainers(tmp_path)
-    # LPIPS is not ported; JAX's random-feature LPIPS is left out of its run
-    monkeypatch.setattr(jmetrics, "compute_lpips", lambda *a, **k: (None, None))
+    carry_lpips_from_jax(monkeypatch)  # both packages' LPIPS on JAX's weights
     jt.render_view = _fixed_render(preds)
     tt.render_view = _fixed_render(preds)
     rj = jt.evaluate(jprov.FramesProvider(gts, poses, intr), save=False)
     rt = tt.evaluate(tprov.FramesProvider(gts, poses, intr), save=True)
     for k in METRICS:
         np.testing.assert_allclose(rt[k], rj[k], rtol=1e-9, err_msg=k)
-    assert rt["lpips_alex"] is None and rt["lpips_vgg"] is None
+    # LPIPS: f32 convolutions summed in other orders (test_torch_lpips.py): rel 1e-4
+    for k in ("lpips_alex_rand", "lpips_vgg_rand"):
+        assert rj[k] > 0
+        np.testing.assert_allclose(rt[k], rj[k], rtol=1e-4, err_msg=k)
+    assert tt.lpips_seconds is not None
     # the PNGs decode to the 8-bit images
     cv2 = pytest.importorskip("cv2")
     vdir = os.path.join(tt.workspace, "validation")
@@ -151,7 +154,7 @@ def test_evaluate_end_to_end_matches_jax(tmp_path, monkeypatch):
     tt.state.ema_params = params_from_jax(params_np(pj))
     tt.occupancy = occupancy_from_jax(np.zeros((1, bitfield.shape[1]), np.float32), bitfield,
                                       0.0, 0)
-    monkeypatch.setattr(jmetrics, "compute_lpips", lambda *a, **k: (None, None))
+    carry_lpips_from_jax(monkeypatch)
     renders = {}
     for name, tr in (("jax", jt), ("torch", tt)):
         inner = tr.render_view
@@ -178,6 +181,9 @@ def test_evaluate_end_to_end_matches_jax(tmp_path, monkeypatch):
             np.testing.assert_allclose(rt[k], rj[k], rtol=0, atol=1e-3, err_msg=k)
         else:
             np.testing.assert_allclose(rt[k], rj[k], rtol=1e-4, atol=1e-6, err_msg=k)
+    # LPIPS of renders 1e-4 apart, on JAX's weights: rel 1e-3
+    for k in ("lpips_alex_rand", "lpips_vgg_rand"):
+        np.testing.assert_allclose(rt[k], rj[k], rtol=1e-3, err_msg=k)
 
 
 # -------------------------------------------------------------- checkpoints

@@ -1,5 +1,6 @@
 """Package-level checks of enerf_torch: it imports no JAX, its entry points
-want the card, and a port-only CPU run of the --ff -O trainer trains."""
+want the card, a port-only CPU run of the --ff -O trainer trains, and the
+CLI honours --test (mesh), --profile and --gui."""
 
 import os
 import subprocess
@@ -34,12 +35,15 @@ def test_package_imports_no_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'enerf_tpu', 'cv2', 'h5py'))\n"
-        "assert len(mods) >= 26, mods\n"
+        "assert len(mods) >= 32, mods\n"
         "assert {'enerf_torch.ops.hashgrid', 'enerf_torch.ops.composite',\n"
         "        'enerf_torch.ops.group_gather', 'enerf_torch.render.renderer',\n"
         "        'enerf_torch.tools.bench_gather', 'enerf_torch.utils.hdf5',\n"
         "        'enerf_torch.data.h5events', 'enerf_torch.data.tumvie',\n"
-        "        'enerf_torch.data.eds'} <= set(mods), mods\n"
+        "        'enerf_torch.data.eds', 'enerf_torch.utils.mesh',\n"
+        "        'enerf_torch.train.lpips', 'enerf_torch.utils.plotting',\n"
+        "        'enerf_torch.utils.profiling', 'enerf_torch.viewer',\n"
+        "        'enerf_torch.tools.render'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -48,15 +52,27 @@ def test_package_imports_no_jax():
     assert out.returncode == 0, out.stderr
 
 
-def test_entry_points_want_the_card():
+def test_entry_points_want_the_card(tmp_path):
     from enerf_torch.backend import resolve_device
     from enerf_torch.data.provider import make_providers
-    from enerf_torch.tools import bench_gather
+    from enerf_torch.tools import bench_gather, render
+    from enerf_torch.train import metrics
     from enerf_torch.train.trainer import Trainer
+    from enerf_torch.utils import mesh
     assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
         return
+    # the render tool on a trained workspace; save_mesh queries and extracts
+    # on its trainer's device, whose default is the card
+    trainer = Trainer(_cfg(), device="cpu", workspace=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render.main(["--model_dir", trainer.workspace, "--n_poses", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.extract_fields([-1] * 3, [1] * 3, 4, lambda p: p[:, 0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        metrics.compute_lpips(np.zeros((8, 8, 3)), np.zeros((8, 8, 3)))
+    trainer.save_mesh(resolution=4)  # a CPU trainer's mesh stays on the CPU
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(_cfg())
     with pytest.raises(RuntimeError, match="CUDA"):  # device=None is the card
@@ -113,3 +129,89 @@ def test_trainer_cpu_run_trains_with_occupancy_updates(tmp_path):
     assert img.min() >= 0.0 and img.max() <= 1.0 + 1e-6
     # CPU tensors take the plain path: the kernel never launched
     assert fused_mlp.fused_field_head.launches == launches
+
+
+def _cli_argv(tmp_path, *extra):
+    # frames mode on the hash grid (the published configs' path), tiny
+    return ["--mode", "synthetic", "--H", "24", "--W", "24", "--syn_frames", "10",
+            "--num_rays", "128", "--num_steps", "16", "--num_levels", "2",
+            "--val_idxs", "0", "--eval_interval", "1", "--log_every", "50",
+            "--outdir", str(tmp_path), "--expname", "cli", "--device", "cpu", *extra]
+
+
+@pytest.fixture
+def small_meshes(monkeypatch):
+    """The CLI's save_mesh(256, 10) calls, recorded, run at 16^3 (the 256^3
+    query is the card's work: chip_smoke.py runs it)."""
+    from enerf_torch.train.trainer import Trainer
+    calls, save_mesh = [], Trainer.save_mesh
+
+    def small(self, path=None, resolution=256, threshold=10.0):
+        calls.append((resolution, threshold))
+        return save_mesh(self, path, resolution=16, threshold=threshold)
+
+    monkeypatch.setattr(Trainer, "save_mesh", small)
+    return calls
+
+
+def test_cli_trains_then_writes_mesh_lpips_and_a_profile(tmp_path, small_meshes):
+    """python -m enerf_torch ... --iters 2 --profile 1: one 100-step epoch,
+    the evaluation with finite LPIPS, a trace of step 2, the test render
+    and the mesh after train + test."""
+    from enerf_torch.__main__ import main
+    main(_cli_argv(tmp_path, "--iters", "2", "--profile", "1"))
+    ws = os.path.join(str(tmp_path), "testweek", "cli")
+    log = open(os.path.join(ws, "log.txt")).read()
+    ev = [ln for ln in log.splitlines() if ln.startswith("[eval]")]
+    assert len(ev) == 1 and "lpips_alex_rand=" in ev[0] and "lpips_vgg_rand=" in ev[0]
+    vals = [float(tok.split("=")[1]) for tok in ev[0].split() if tok.startswith("lpips_")]
+    assert len(vals) == 2 and np.isfinite(vals).all() and min(vals) > 0
+    assert small_meshes == [(256, 10.0)]
+    assert os.path.exists(os.path.join(ws, "meshes", "cli_ep0001.obj"))
+    assert len(os.listdir(os.path.join(ws, "profile"))) == 1
+    assert "[profile] trace of steps 2-2" in log
+    assert os.path.exists(os.path.join(ws, "diagnostics"))
+    assert os.path.exists(os.path.join(ws, "results", "0000.png"))
+
+
+def test_cli_test_writes_a_mesh_and_gui_serves_the_viewer(tmp_path, small_meshes, monkeypatch):
+    """--test renders and exports the mesh without training; --gui builds
+    the viewer instead of training (driven here on an ephemeral port)."""
+    import threading
+    import urllib.request
+    from enerf_torch import viewer
+    from enerf_torch.__main__ import main
+    from enerf_torch.utils.png import decode_png
+
+    main(_cli_argv(tmp_path, "--test"))
+    ws = os.path.join(str(tmp_path), "testweek", "cli")
+    assert small_meshes == [(256, 10.0)]
+    assert os.path.exists(os.path.join(ws, "meshes", "cli_ep0000.obj"))
+    assert os.path.exists(os.path.join(ws, "results", "0000.png"))
+    assert not os.path.exists(os.path.join(ws, "checkpoints", "cli_ep0001.npz"))
+
+    served = {}
+
+    def serve(gui, host="127.0.0.1", port=7007):
+        assert (host, port) == ("127.0.0.1", 7007)
+        server = viewer.make_viewer_server(gui, host, 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            url = f"http://{host}:{server.server_address[1]}/frame"
+            with urllib.request.urlopen(url, timeout=120) as r:
+                served["frame"] = decode_png(r.read())
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        served["gui"] = gui
+
+    monkeypatch.setattr(viewer, "serve_web_viewer", serve)
+    main(_cli_argv(tmp_path / "gui", "--gui", "--max_spp", "4"))
+    gui = served["gui"]
+    assert gui.training and gui.max_spp == 4 and gui.cam.W == 24
+    assert served["frame"].shape == (24, 24)  # out_dim_color 1: grayscale
+    assert gui.trainer.state.step == 16  # the frame's 16 steps, no epoch
+    ws = os.path.join(str(tmp_path / "gui"), "testweek", "cli")
+    assert not os.listdir(os.path.join(ws, "checkpoints"))

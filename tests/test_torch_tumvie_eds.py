@@ -20,14 +20,14 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from torch_parity import n, params_np, t
+from torch_parity import carry_lpips_from_jax, n, params_np, t
 
 from enerf_tpu import config as jconfig
 from enerf_tpu.data import eds as jeds, h5events as jh5, provider as jprov
 from enerf_tpu.data import synthetic as jsyn, tumvie as jtumvie
 from enerf_tpu.models import field as jfield
 from enerf_tpu.ops import hashgrid as jh
-from enerf_tpu.train import metrics as jmetrics, state as jstate, step as jstep
+from enerf_tpu.train import state as jstate, step as jstep
 from enerf_tpu.train import trainer as jtrainer
 from enerf_torch import config as tconfig
 from enerf_torch.convert import params_from_jax
@@ -374,13 +374,15 @@ def test_stereo_views_written_by_evaluate_match_jax(tumvie_dir, tmp_path, monkey
         assert img.shape[:2] == (H, W)
         return img, img[..., 0] * 0.5
 
-    monkeypatch.setattr(jmetrics, "compute_lpips", lambda *a, **k: (None, None))
+    carry_lpips_from_jax(monkeypatch)  # both packages' LPIPS on JAX's weights
     jt = jtrainer.Trainer(cfg_j, workspace=str(tmp_path / "jax"), use_checkpoint="scratch")
     tt = ttrainer.Trainer(cfg_t, device="cpu", workspace=str(tmp_path / "torch"))
     jt.render_view = tt.render_view = render_view
     rj, rt = jt.evaluate(jva), tt.evaluate(tva)
     for k in ("psnr", "affine_a", "affine_b", "psnr_corrected"):
         np.testing.assert_allclose(rt[k], rj[k], rtol=1e-9, err_msg=k)
+    for k in ("lpips_alex_rand", "lpips_vgg_rand"):  # test_torch_lpips.py's rel 1e-4
+        np.testing.assert_allclose(rt[k], rj[k], rtol=1e-4, err_msg=k)
     dj = os.path.join(jt.workspace, "validation", "event_view")
     dt = os.path.join(tt.workspace, "validation", "event_view")
     names = sorted(os.listdir(dj))

@@ -37,3 +37,19 @@ def params_np(params):
 def unit_dirs(rng, count):
     d = rng.normal(size=(count, 3)).astype(np.float32)
     return d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+
+def carry_lpips_from_jax(monkeypatch):
+    """Make the port's LPIPS use the JAX package's current weights (and lin
+    heads, when calibrated), converted: the two packages then compute the
+    same metric, and the port's label follows JAX's."""
+    import enerf_tpu.train.lpips_jax as LJ
+    from enerf_torch.train import lpips as TL
+
+    nets = {}
+    for net in ("alex", "vgg"):
+        params, lins, calibrated = LJ._get_net(net)
+        convs = TL.lpips_params_from_jax([(np.asarray(w), np.asarray(b)) for w, b in params])
+        lins = None if lins is None else [torch.from_numpy(np.array(w)) for w in lins]
+        nets[net] = (convs, lins, calibrated)
+    monkeypatch.setattr(TL, "get_net", lambda net, device="cpu": nets[net])
