@@ -17,7 +17,9 @@ Phases (one line each; any failure exits non-zero before the result lines):
      block 4 and 3, its pre-pass's plan against the plain plan, the
      pre-pass's time alone and the time of the same pairs sample by sample;
      K3 group_gather, bit-exact, at the gather benchmark's default shape and
-     at the block-grid table's);
+     at the block-grid table's); K1 in bf16 also at the grid-free encoders'
+     widths, enc 3 wide (the identity, KE = 1) and 39 wide (the frequency
+     encoding, KE = 4), padded by the wrapper to 16 KE columns;
   3b. gather benchmark: enerf_torch.tools.bench_gather at its defaults and
      with --rows 97824 --d 250, every variant's rows/s and GB/s (the path
      that runs K3);
@@ -105,7 +107,27 @@ Phases (one line each; any failure exits non-zero before the result lines):
      no-event pairs: 2 x 30,096 + 2 x 15,048 rays x 512 steps) on an EDS
      directory written by the port's save_eds_dataset from phase 11's
      480 x 640 simulation with a t_offset of 5 s, 4 steps and one
-     evaluation, with phase 16's prints and OOM rule.
+     evaluation, with phase 16's prints and OOM rule;
+ 18. background net: the main path's --ff -O with --bg_radius 32 (the bg
+     net's 4-level 2-D hash grid and 2 x 64 MLP), 8 steps: finite losses,
+     bg_table's gradient non-zero, K1 launched; 4096 rays that miss the box
+     render exactly the bg net's colour through the training composite and
+     the inference renderer;
+ 19. grid-free encoders: --ff -O with --encoding frequency and with
+     --encoding none, 4 steps each: K1 launched at KE = 4 and KE = 1 only
+     (counted by KE at the wrapper's launch_packed), finite losses; then one
+     step of each on the fixed-step renderer (the default path's config);
+ 20. the CLIP step at a published width: configs/spiral1/spiral1_nerf.txt
+     as published on phase 11's fixture with --rand_pose 4 --clip_text
+     "a photo of a carpet" --bg_radius 32, 10 steps, the 5th and 10th
+     rendering a random pose's 173 x 173 rays x 512 steps: steps/s, peak
+     memory, loss_clip, a CLIP step's seconds against a GT step's; then 4
+     steps of --ff -O --events 0 --rand_pose 1 on the synthetic scene,
+     which launch K1;
+ 21. position gradients: dL/dx of hash_encode and block_encode (16 x 2,
+     2^19, block 4) at 1,048,576 points, the card against the CPU on the
+     same inputs (relative 1e-5 of the largest |dx|), and the backward's
+     time on the card with and without dx.
 Then a `{"kernels": [...]}` line, the card line, and last the result line
 `{"ok": true, "device": {...}}`.
 """
@@ -265,17 +287,18 @@ def sass_counts():
         raise AssertionError("K2's accumulation has no shared-memory atomic in its SASS")
 
 
-def head_inputs(B, dtype, gen, sets=1):
-    """K1's operands at the main path's widths: `sets` pairs of enc [B, 32]
-    (16 levels x 2) and SH-4 direction encodings [B, 16], then weights
-    drawn like init_field_params (U(+-1/sqrt(fan_in)), [in, out] layout)."""
+def head_inputs(B, dtype, gen, sets=1, E=32):
+    """K1's operands: `sets` pairs of enc [B, E] (the main path's 16 levels x
+    2 = 32; the frequency encoding's 39, the identity's 3) and SH-4
+    direction encodings [B, 16], then weights drawn like init_field_params
+    (U(+-1/sqrt(fan_in)), [in, out] layout)."""
     import torch
     from enerf_torch.ops.sh import sh_encode
 
     dev = "cuda"
     xs = []
     for _ in range(sets):
-        enc = (torch.rand(B, 32, device=dev, generator=gen) * 2 - 1) * 0.5
+        enc = (torch.rand(B, E, device=dev, generator=gen) * 2 - 1) * 0.5
         d = torch.randn(B, 3, device=dev, generator=gen)
         xs.append((enc.to(dtype), sh_encode(d / d.norm(dim=-1, keepdim=True), 4).to(dtype)))
 
@@ -283,7 +306,7 @@ def head_inputs(B, dtype, gen, sets=1):
         b = 1.0 / math.sqrt(i)
         return (torch.rand(i, o, device=dev, generator=gen) * 2 - 1) * b
 
-    ws = [w(32, 64), w(64, 16), w(31, 64), w(64, 64), w(64, 1)]
+    ws = [w(E, 64), w(64, 16), w(31, 64), w(64, 64), w(64, 1)]
     return xs, [a.to(dtype) for a in ws]
 
 
@@ -378,7 +401,48 @@ def phase_kernels():
         sweep.append(f"B={b} {b_ms:.4f} ms (bound {bound_of(b, 'bfloat16')[0]:.4f} ms)")
         del xs
     print("[kernel] fused_field_head bfloat16, the kernel alone by batch: " + "; ".join(sweep))
+    for E in (3, 39):
+        results[f"bfloat16_E{E}"] = head_width(B, E, gen)
     return results
+
+
+def head_width(B, E, gen):
+    """K1 in bf16 at the grid-free encoders' widths (E = 3, the identity:
+    KE = 1; E = 39, the frequency encoding: KE = 4): the wrapper pads enc
+    to 16 KE columns, 16-byte rows, before the launch.  Against the plain
+    version at the same TOL.  The bound counts the function's own bytes
+    and operations (the unpadded enc, E first-layer weight rows); the
+    padded enc the kernel reads is printed beside it."""
+    import torch
+    from enerf_torch.ops import fused_mlp
+
+    xs, ws = head_inputs(B, torch.bfloat16, gen, sets=6, E=E)
+    ke = fused_mlp.k_steps(E)
+    with torch.no_grad():
+        s_k, c_k = fused_mlp.launch_kernel(*xs[0], *ws)
+        s_p, c_p = fused_mlp.head_reference(*xs[0], *ws)
+        torch.cuda.synchronize()
+        sig_rel = float(((s_k - s_p).abs() / s_p.abs().clamp(min=1e-30)).max())
+        rgb_abs = float((c_k - c_p).abs().max())
+        max_abs = max(float((s_k - s_p).abs().max()), rgb_abs)
+        tol = TOL["bfloat16"]
+        ok = (torch.isfinite(s_k).all() and torch.isfinite(c_k).all()
+              and sig_rel <= tol["sigma_rel"] and rgb_abs <= tol["rgb_abs"])
+        ms = graph_ms(rotating(lambda e, d: fused_mlp.launch_kernel(e, d, *ws), xs))
+        plain_ms = graph_ms(rotating(lambda e, d: fused_mlp.head_reference(e, d, *ws), xs))
+    bound_ms, bound_by, nbytes, flops = bound_of(B, "bfloat16", E=E)
+    padded_mb = bound_of(B, "bfloat16", E=16 * ke)[2] / 1e6
+    print(f"[kernel] fused_field_head bfloat16 E={E} (KE={ke}, enc padded to {16 * ke} columns, "
+          f"{32 * ke} bytes a row; {padded_mb:.2f} MB with the padding) B={B}: "
+          f"sigma rel err {sig_rel:.3e}, rgb abs err "
+          f"{rgb_abs:.3e} (tol {tol}) -> {'ok' if ok else 'FAIL'}; launch_kernel {ms:.4f} ms "
+          f"(pack_head and the pad included); plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"by {bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), share of bound "
+          f"{bound_ms / ms:.1%}; device times from CUDA graphs, 6 rotating input sets")
+    if not ok:
+        raise AssertionError(f"K1 at E={E} disagrees with its plain version")
+    return dict(E=E, KE=ke, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, share_of_bound=bound_ms / ms)
 
 
 def k2_bound(pairs, live, total_rows, row_cells):
@@ -972,12 +1036,12 @@ def phase_no_event(workspace):
         raise AssertionError(f"loss_no_evs not finite, not logged or never > 0: {lne}")
 
 
-def default_config(workspace):
+def default_config(workspace, *extra):
     from enerf_torch.config import build_config
     return build_config([
         "--config", os.path.join(REPO, "configs", "synthetic_demo.txt"), "--event_only", "0",
         "--iters", "48", "--log_every", "8", "--seed", "0", "--val_idxs", "0",
-        "--val_idxs", "20", "--eval_interval", "1", "--outdir", workspace])
+        "--val_idxs", "20", "--eval_interval", "1", "--outdir", workspace, *extra])
 
 
 def phase_default_path(workspace):
@@ -1839,6 +1903,282 @@ def phase_stereo(tag, config, datadir, workspace, steps):
         print(f"[{tag}] {diagnostics_text(trainer)}")
 
 
+def reset_launches():
+    from enerf_torch.ops import fused_mlp, group_gather, scatter_accum
+    kernels = (fused_mlp.fused_field_head, scatter_accum.block_table_grad,
+               group_gather.group_gather)
+    for k in kernels:
+        k.launches = 0
+    return kernels
+
+
+class KeCount:
+    """Counts K1's bf16 launches by enc k-steps (KE), observing the wrapper's
+    launch_packed (the wrapper's own count is fused_field_head.launches)."""
+
+    def __init__(self):
+        from enerf_torch.ops import fused_mlp
+        self.mod, self.real, self.seen = fused_mlp, fused_mlp.launch_packed, {}
+
+    def __enter__(self):
+        def counting(enc, denc, pack):
+            self.seen[pack.ke] = self.seen.get(pack.ke, 0) + 1
+            return self.real(enc, denc, pack)
+        self.mod.launch_packed = counting
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.mod.launch_packed = self.real
+
+
+def phase_background(workspace):
+    """--ff -O --bg_radius 32 at the main path's width: 8 steps; the loss
+    finite at each, bg_table's gradient non-zero, K1 launched; rays that
+    miss the box render exactly the bg net's colour, through the training
+    composite and the inference renderer."""
+    import numpy as np
+    import torch
+    from enerf_torch.data.provider import make_providers
+    from enerf_torch.models.field import field_background
+    from enerf_torch.ops.aabb import MISS, aabb_tensor, near_far_from_aabb, polar_from_ray
+    from enerf_torch.render.march import render_rays_infer, render_rays_march
+    from enerf_torch.train.trainer import Trainer
+
+    steps = 8
+    cfg = smoke_config(workspace, "--bg_radius", "32", "--iters", str(steps), "--log_every", "1")
+    trainer = Trainer(cfg, workspace=workspace)
+    st = trainer.static
+    train, _ = make_providers(cfg)
+    train.steps_per_epoch = steps
+    k1 = reset_launches()[0]
+    with KeCount() as ke:
+        trainer.train(train, max_epoch=1)
+    torch.cuda.synchronize()
+    launches = k1.launches
+    secs = trainer.epoch_seconds["steps"]
+    losses = [aux["loss"] for _, aux in trainer.history]
+    gbg = trainer.state.params["bg_table"].grad
+    gmax = float(gbg.abs().max()) if gbg is not None else 0.0
+    # rays from a sphere of radius 4 pointing away from the box: all miss it
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ro = torch.randn(4096, 3, device="cuda", generator=gen)
+    ro = 4.0 * ro / ro.norm(dim=-1, keepdim=True)
+    rd = ro / ro.norm(dim=-1, keepdim=True) + 0.1 * torch.randn(4096, 3, device="cuda",
+                                                               generator=gen)
+    rd = rd / rd.norm(dim=-1, keepdim=True)
+    near, _ = near_far_from_aabb(ro, rd, aabb_tensor(st.bound, "cuda"), cfg.min_near)
+    params, occ = trainer.state.params, trainer.occupancy.occ_bitfield
+    with torch.no_grad():
+        bgc = field_background(params, st, polar_from_ray(ro, rd, st.bg_radius), rd)
+        comp = render_rays_march(params, st, occ, ro, rd, num_samples=cfg.march_samples,
+                                 max_steps=cfg.max_steps, min_near=cfg.min_near,
+                                 compact_frac=cfg.compact_frac)["image"]
+        infer = render_rays_infer(params, st, occ, ro, rd, min_near=cfg.min_near)["image"]
+    same = bool(torch.equal(comp, bgc) and torch.equal(infer, bgc))
+    print(f"[bg] --ff -O --bg_radius {st.bg_radius:g}: bg net {st.bg_grid_meta.num_levels}x"
+          f"{st.bg_grid_meta.level_dim} levels 2-D ({st.bg_grid_meta.total_entries} entries, "
+          f"{int(st.bg_grid_meta.is_hashed.sum())} hashed), MLP {st.mlp_dims('bg')}; {steps} "
+          f"steps {secs:.2f} s = {steps / secs:.3f} steps/s (occupancy update included); "
+          f"losses {[f'{x:.5f}' for x in losses]}; bg_table |grad| max {gmax:.3e}; K1 launches "
+          f"{launches} (by KE {ke}); {int((near >= MISS).sum())} of 4096 rays miss the box and "
+          f"render {'exactly' if same else 'NOT'} the bg net's colour (training composite and "
+          f"inference renderer; colour range {float(bgc.min()):.4f}-{float(bgc.max()):.4f})")
+    if not (len(losses) == steps and np.isfinite(losses).all()):
+        raise AssertionError(f"bg net: losses not all finite: {losses}")
+    if not (gmax > 0 and launches > 0 and same and bool((near >= MISS).all())):
+        raise AssertionError(f"bg net: bg_table grad {gmax}, K1 launches {launches}, the "
+                             f"missing rays' colour the bg net's: {same}")
+    return launches
+
+
+def phase_grid_free(workspace):
+    """--ff -O with --encoding frequency (E = 39, K1 at KE = 4) and --encoding
+    none (E = 3, KE = 1): 4 steps each, K1 launched at that KE only, finite
+    losses; then one step of each on the fixed-step renderer (the default
+    path's config)."""
+    import numpy as np
+    import torch
+    from enerf_torch.data.provider import make_providers
+    from enerf_torch.ops import fused_mlp
+    from enerf_torch.train.trainer import Trainer
+
+    out = {}
+    for enc, want_ke in (("frequency", 4), ("none", 1)):
+        ws = os.path.join(workspace, enc)
+        cfg = smoke_config(ws, "--encoding", enc, "--iters", "4", "--log_every", "1")
+        trainer = Trainer(cfg, workspace=ws)
+        train, _ = make_providers(cfg)
+        train.steps_per_epoch = 4
+        k1 = reset_launches()[0]
+        with KeCount() as ke:
+            trainer.train(train, max_epoch=1)
+        torch.cuda.synchronize()
+        launches = k1.launches
+        losses = [aux["loss"] for _, aux in trainer.history]
+        st = trainer.static
+        # the default path (hash grid replaced by this encoder, fixed steps)
+        dws = os.path.join(workspace, enc + "_default")
+        dcfg = default_config(dws, "--encoding", enc)
+        dtr = Trainer(dcfg, workspace=dws)
+        dtrain, _ = make_providers(dcfg)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        daux = dtr.train_step(dtrain)
+        dloss = float(daux["loss"])
+        dsec = time.time() - t0
+        print(f"[grid-free] --ff -O --encoding {enc}: enc {st.in_dim} wide, no table "
+              f"({sorted(trainer.state.params)}); 4 steps {trainer.epoch_seconds['steps']:.2f} s; "
+              f"losses {[f'{x:.5f}' for x in losses]}; K1 launches {launches}, by KE {ke} "
+              f"(want KE {want_ke} = k_steps({st.in_dim}) {fused_mlp.k_steps(st.in_dim)}); "
+              f"fixed-step default path, one step: loss {dloss:.5f} ({dsec:.2f} s, the first)")
+        if not (len(losses) == 4 and np.isfinite(losses).all() and np.isfinite(dloss)):
+            raise AssertionError(f"--encoding {enc}: losses not finite: {losses}, {dloss}")
+        if not (launches > 0 and set(ke) == {want_ke} and sum(ke.values()) == launches):
+            raise AssertionError(f"--encoding {enc}: K1 launches {launches}, by KE {ke}")
+        out[enc] = dict(launches=launches, KE=want_ke)
+        del trainer, dtr
+    return out
+
+
+def timed_steps(trainer):
+    """Wrap trainer.train_step so each step's synchronized seconds land in
+    trainer.step_seconds as (rand-pose step?, seconds)."""
+    import torch
+    step, trainer.step_seconds = trainer.train_step, []
+
+    def timed(provider):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        aux = step(provider)
+        torch.cuda.synchronize()
+        trainer.step_seconds.append(("loss_clip" in aux, time.time() - t0))
+        return aux
+
+    trainer.train_step = timed
+
+
+def phase_clip(datadir, workspace):
+    """The CLIP step at a published width: spiral1_nerf as published with
+    --rand_pose 4 --clip_text --bg_radius 32, 10 steps (the 5th and 10th
+    render a random pose's 173 x 173 ray grid x 512 steps); then 4 steps of
+    --ff -O --events 0 --rand_pose 1 on the synthetic scene, through K1."""
+    import numpy as np
+    import torch
+    from enerf_torch.__main__ import get_select_frames
+    from enerf_torch.data.provider import make_providers
+    from enerf_torch.train.trainer import Trainer
+
+    steps, text = 10, "a photo of a carpet"
+    cfg = esim_config("spiral1/spiral1_nerf.txt", datadir, workspace, "--iters", str(steps),
+                      "--rand_pose", "4", "--clip_text", text, "--bg_radius", "32")
+    trainer = Trainer(cfg, workspace=workspace)
+    timed_steps(trainer)
+    train, _ = make_providers(cfg, get_select_frames(cfg))
+    train.steps_per_epoch = steps
+    side = max(int(np.sqrt(train.num_rays)), 8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train(train, max_epoch=1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    secs = trainer.epoch_seconds["steps"]
+    hist = trainer.history
+    clip = [(s, aux["loss_clip"]) for s, aux in hist if "loss_clip" in aux]
+    t_clip = [t for c, t in trainer.step_seconds if c]
+    t_gt = [t for c, t in trainer.step_seconds[1:] if not c]
+    print(f"[clip] spiral1_nerf as published + --rand_pose 4 --clip_text {text!r} --bg_radius "
+          f"32: {esim_shape_line(trainer, train, cfg)}; rand-pose steps render {side} x {side} = "
+          f"{side * side} rays x {cfg.num_steps} steps = {side * side * cfg.num_steps} samples")
+    print(f"[clip] {steps} steps {secs:.3f} s = {steps / secs:.4f} steps/s (the first "
+          f"included); peak memory {peak:.2f} GiB; loss_clip at steps "
+          + ", ".join(f"{s}: {v:.5f}" for s, v in clip)
+          + f"; a CLIP step {np.mean(t_clip):.3f} s ({[f'{t:.3f}' for t in t_clip]}) against a "
+          f"GT step {np.mean(t_gt):.3f} s (steps 2-{steps}, {len(t_gt)} of them); losses "
+          + ", ".join(f"{aux['loss']:.5f}" for _, aux in hist))
+    losses = [aux["loss"] for _, aux in hist]
+    if not (len(losses) == steps and np.isfinite(losses).all()):
+        raise AssertionError(f"CLIP run: losses not all finite: {hist}")
+    if [s for s, _ in clip] != [5, 10]:
+        raise AssertionError(f"CLIP run: rand-pose steps at {[s for s, _ in clip]}, not [5, 10]")
+    del trainer, train
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ws = os.path.join(workspace, "ff")
+    cfg = smoke_config(ws, "--events", "0", "--event_only", "0", "--rand_pose", "1",
+                       "--clip_text", text, "--iters", "4", "--log_every", "1")
+    trainer = Trainer(cfg, workspace=ws)
+    train, _ = make_providers(cfg)
+    train.steps_per_epoch = 4
+    k1 = reset_launches()[0]
+    trainer.train(train, max_epoch=1)
+    torch.cuda.synchronize()
+    launches = k1.launches
+    clip = [(s, aux["loss_clip"]) for s, aux in trainer.history if "loss_clip" in aux]
+    losses = [f"{aux['loss']:.5f}" for _, aux in trainer.history]
+    side = max(int(np.sqrt(train.num_rays)), 8)
+    print(f"[clip] --ff -O --events 0 --rand_pose 1: 4 steps {trainer.epoch_seconds['steps']:.2f} "
+          f"s; rand-pose steps ({side} x {side} rays on the march) loss_clip "
+          + ", ".join(f"{s}: {v:.5f}" for s, v in clip)
+          + f"; losses {losses}; K1 launches {launches}")
+    if not ([s for s, _ in clip] == [2, 4] and np.isfinite([v for _, v in clip]).all()
+            and launches > 0):
+        raise AssertionError(f"--ff -O CLIP steps: {clip}, K1 launches {launches}")
+    return launches
+
+
+def phase_position_grads():
+    """dL/dx of hash_encode and block_encode (the main path's 16 x 2 levels,
+    2^19; block 4) at 1,048,576 points, some outside the box: the card
+    against the CPU on the same inputs (relative 1e-5 of the largest
+    |dx|); the backward's time with and without dx on the card."""
+    import torch
+    from enerf_torch.models.field import FieldStatic
+    from enerf_torch.ops.blockgrid import block_encode
+    from enerf_torch.ops.hashgrid import hash_encode
+
+    N = 1 << 20
+    gen = torch.Generator().manual_seed(2)
+    x = torch.rand(N, 3, generator=gen) * 1.04 - 0.02
+    res = {}
+    for enc, fn in (("hashgrid", hash_encode), ("blockgrid", block_encode)):
+        meta = FieldStatic(encoding=enc, grid_block=4).grid_meta
+        rows = meta.total_entries if enc == "hashgrid" else meta.total_rows
+        width = meta.level_dim if enc == "hashgrid" else meta.level_dim * meta.row_cells
+        table = torch.rand(rows, width, generator=gen) * 2 - 1
+        g = torch.randn(N, meta.output_dim, generator=gen)
+
+        def dx_on(dev):
+            xx = x.to(dev, copy=True).requires_grad_()
+            (dx,) = torch.autograd.grad(fn(xx, table.to(dev), meta), xx, g.to(dev))
+            return dx
+
+        t0 = time.time()
+        ref = dx_on("cpu")
+        t_cpu = time.time() - t0
+        got = dx_on("cuda").cpu()
+        err = float((got - ref).abs().max() / ref.abs().max())
+        ms = {}
+        for with_dx in (False, True):
+            xx = x.to("cuda", copy=True).requires_grad_(with_dx)
+            tt = table.cuda().requires_grad_()
+            out = fn(xx, tt, meta)
+            wrt = [tt, xx] if with_dx else [tt]
+            gc_ = g.cuda()
+            ms[with_dx] = time_ms(lambda: torch.autograd.grad(out, wrt, gc_, retain_graph=True),
+                                  iters=5, warmup=1)
+            del out
+        print(f"[dx] {enc} ({meta.num_levels}x{meta.level_dim}, {rows} rows x {width}) at {N} "
+              f"points ({int(((x < 0) | (x > 1)).any(-1).sum())} outside the box): card vs CPU "
+              f"max |ddx| / max |dx| {err:.3e} (tol 1e-5; max |dx| {float(ref.abs().max()):.3e}; "
+              f"the CPU's {t_cpu:.1f} s); backward on the card {ms[False]:.2f} ms without dx, "
+              f"{ms[True]:.2f} ms with dx ({ms[True] - ms[False]:+.2f} ms, CUDA events)")
+        if not err <= 1e-5:
+            raise AssertionError(f"{enc} position gradients: card vs CPU {err}")
+        res[enc] = dict(rel_err=err, backward_ms=ms[False], backward_dx_ms=ms[True])
+    return res
+
+
 def main():
     try:
         import torch
@@ -1902,6 +2242,16 @@ def main():
         eds_dir = phase_eds_fixture(esim_data, os.path.join(REPO, "build", "chip_smoke_eds"))
         phase_stereo("eds", "eds11/eds11_enerf.txt", eds_dir,
                      os.path.join(REPO, "build", "chip_smoke_eds11"), steps=4)
+        gc.collect()
+        torch.cuda.empty_cache()
+        k1_bg = phase_background(os.path.join(REPO, "build", "chip_smoke_bg"))
+        k1_grid_free = phase_grid_free(os.path.join(REPO, "build", "chip_smoke_grid_free"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        k1_clip = phase_clip(datadir, os.path.join(REPO, "build", "chip_smoke_clip"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        dx = phase_position_grads()
     except Exception:  # every phase's failure ends the run non-zero
         traceback.print_exc()
         print("[smoke] FAIL")
@@ -1916,8 +2266,12 @@ def main():
         "bound_by": bf["bound_by"], "library_ms": None,
         "share_of_bound": bf["share_of_bound"], "kernel_ms": bf["kernel_ms"],
         "pack_ms": bf["pack_ms"], "host_ms": bf["host_ms"], "differ_share": bf["differ_share"],
-        "float32": res["float32"], "launches_frames_march": k1_frames,
-        "launches_viewer": k1_viewer,
+        "float32": res["float32"], "bfloat16_E3": res["bfloat16_E3"],
+        "bfloat16_E39": res["bfloat16_E39"], "launches_frames_march": k1_frames,
+        "launches_viewer": k1_viewer, "launches_background": k1_bg,
+        "launches_frequency_KE4": k1_grid_free["frequency"]["launches"],
+        "launches_none_KE1": k1_grid_free["none"]["launches"], "launches_clip_march": k1_clip,
+        "position_grads": dx,
     }, dict({
         "name": "block_table_grad", "route": "cuda",
         "source": "enerf_torch/csrc/block_table_grad.cu",

@@ -283,24 +283,19 @@ class Config:
 
 # TPU variants of one function or TPU dispatch machinery: configs keep
 # parsing, the port runs its single implementation and logs that it
-# ignored them (train/trainer.py).  position_grads acts only together with
-# segsum_grad.
+# ignored them (train/trainer.py).  position_grads selects the position
+# gradients of JAX's segsum table backward (segsum_grad's compute_dx), a
+# TPU variant; the port's plain encoders give dL/dx whenever x needs a
+# gradient, as JAX's plain hash_encode / block_encode do, and the K2 route
+# gives zero, as JAX's block_encode_fast does.
 TPU_ONLY = ("fuse_steps", "mesh_shape", "multihost", "bf16_gather",
             "segsum_grad", "mxu_grad", "mxu_rows", "coalesce_rounds", "position_grads")
 
 
 def check_supported(cfg):
-    """Raise NotImplementedError for options the port cannot run yet."""
-    missing = []
-    if cfg.encoding in ("frequency", "none"):
-        missing.append(f"encoding={cfg.encoding}")
-    if cfg.bg_radius > 0:
-        missing.append("bg_radius > 0 (background net)")
-    if cfg.rand_pose >= 0:
-        missing.append("rand_pose (CLIP step)")
-    if missing:
-        raise NotImplementedError(
-            "enerf_torch does not support yet: " + ", ".join(missing))
+    """The place to refuse, with NotImplementedError, an option of the JAX
+    trainer that the port cannot run yet.  Every option is ported today,
+    so it returns cfg."""
     return cfg
 
 

@@ -1,7 +1,9 @@
-"""Carry the JAX package's weights and occupancy state across, as numpy.
+"""Carry the JAX package's weights, occupancy state and stub CLIP embedder
+across, as numpy.
 
 Parameter names and the [in, out] weight layout are the same in both
-packages, so the conversion is 1:1.  Inputs are numpy arrays (e.g.
+packages (the background net's bg_table and bg_w* too), so the conversion
+is 1:1.  Inputs are numpy arrays (e.g.
 `{k: np.asarray(v) for k, v in jax_params.items()}`), so this module
 needs nothing of JAX.
 """
@@ -10,6 +12,7 @@ import numpy as np
 import torch
 
 from enerf_torch.render.occupancy import OccupancyState
+from enerf_torch.train.clip_guidance import StubEmbedder
 
 
 def params_from_jax(params_np, device="cpu"):
@@ -26,3 +29,14 @@ def occupancy_from_jax(density_grid, occ_bitfield, mean_density, iter_density,
         mean_density=torch.tensor(np.asarray(mean_density, np.float32), device=device),
         iter_density=int(iter_density),
     )
+
+
+def embedder_from_jax(proj, text_feat, device="cpu"):
+    """The JAX StubEmbedder's projection [16 * 16 * channels, dim] and a text
+    feature [dim] (numpy) -> (the port's StubEmbedder with that projection,
+    the text feature as a tensor): both packages then compute the same
+    loss_clip (their own draws come from different generators)."""
+    proj = np.array(proj, np.float32)  # a writable copy
+    emb = StubEmbedder(dim=proj.shape[1], channels=proj.shape[0] // 256, device=device,
+                       proj=proj)
+    return emb, torch.tensor(np.asarray(text_feat, np.float32), device=device)

@@ -7,9 +7,10 @@ Counterpart of enerf_tpu/data/provider.py (reference nerf/provider.py):
     transforms JSON), read and written with the port's own PNG codec
     (utils/png.py), since the card has no OpenCV;
   - `FramesProvider`: frame supervision (num_rays random pixels of one
-    random frame per step, optionally weighted by an error map), and the
-    source of validation and test views, with the stereo rigs' event
-    camera views (`stereo_views`);
+    random frame per step, optionally weighted by an error map; with
+    rand_pose, every so many batches a random orbit pose's full ray grid
+    for the CLIP step instead), and the source of validation and test
+    views, with the stereo rigs' event camera views (`stereo_views`);
   - `EventProvider` (per-event poses precomputed on the host, or
     interpolated on the device per batch with precompute_evs_poses=0), its
     per-image event windows (tumvie / eds: a window drawn each step), the
@@ -19,7 +20,7 @@ Counterpart of enerf_tpu/data/provider.py (reference nerf/provider.py):
   - `make_providers` for mode=synthetic, esim, tumvie and eds.
 Everything a step samples lives on the provider's device, and every draw
 comes from the caller's torch.Generator, so a batch costs no host-device
-transfer and no sync.  rand_pose batches are not ported.
+transfer and no sync.
 """
 
 import glob
@@ -37,7 +38,7 @@ from enerf_torch.data.poses import (
     get_hom_trafos, interp_pose_device, make_pose_interpolator, mat_to_quat_np,
     nerf_matrix_to_ngp,
 )
-from enerf_torch.data.rays import get_event_rays, get_rays_sampled
+from enerf_torch.data.rays import get_event_rays, get_rays_full, get_rays_sampled
 from enerf_torch.utils.png import read_png, resize_area, write_png
 
 
@@ -308,12 +309,22 @@ class FramesProvider:
     source of validation and test views.  `stereo_views`: the event camera
     views of a stereo rig (tumvie / eds), dicts of pose [4, 4],
     intrinsics, H, W and gt None, rendered by the evaluation beside the
-    frame views (reference provider.py:1087-1091)."""
+    frame views (reference provider.py:1087-1091).
+
+    rand_pose (reference main_nerf.py:183, wired as the JAX package wires
+    it): < 0 never, 0 every batch, > 0 the batches whose count (from 1) is a
+    multiple of rand_pose + 1 are rand-pose batches: a look-at orbit pose at
+    rand_radius * U(1, 1.2), its full side x side ray grid (side =
+    max(floor(sqrt(num_rays)), 8), a 60 degree field of view) and
+    `rand_pose_side`, no images."""
 
     def __init__(self, images, poses, intrinsics, num_rays=4096, steps_per_epoch=100,
-                 error_map=False, stereo_views=None, device="cpu"):
+                 error_map=False, stereo_views=None, rand_pose=-1, rand_radius=2.5,
+                 device="cpu"):
         self.device = torch.device(device)
         self.stereo_views = stereo_views
+        self.rand_pose, self.rand_radius = int(rand_pose), float(rand_radius)
+        self._batch_i = 0
         self.H, self.W = images.shape[1:3]
         self.intrinsics = intrinsics
         self.num_rays = num_rays
@@ -328,9 +339,35 @@ class FramesProvider:
         self.error_map = (torch.ones(images.shape[0], 128 * 128, device=self.device)
                           if error_map else None)
 
+    def _rand_pose_batch(self, generator=None, draws=None):
+        """A random orbit pose's full ray grid; its three draws (radius,
+        theta, phi as U(0, 1) [3]) on the device from `generator`, or
+        `draws`.  The pose is built on the device: no host sync."""
+        u = draws if draws is not None else torch.rand(3, device=self.device,
+                                                       generator=generator)
+        side = max(int(np.sqrt(self.num_rays)), 8)
+        r = self.rand_radius * (1.0 + 0.2 * u[0])
+        theta = np.pi / 6 + (np.pi / 2 - np.pi / 6) * u[1]
+        phi = 2 * np.pi * u[2]
+        eye = torch.stack([r * torch.sin(theta) * torch.cos(phi),
+                           r * torch.sin(theta) * torch.sin(phi), r * torch.cos(theta)])
+        # look-at with rdf axes (synthetic.look_at_pose)
+        f = -eye / torch.linalg.vector_norm(eye)
+        up = torch.tensor([0.0, 0.0, 1.0], device=eye.device)
+        rt = torch.linalg.cross(f, up)
+        rt = rt / torch.linalg.vector_norm(rt)
+        pose = torch.stack([rt, torch.linalg.cross(f, rt), f, eye], dim=1)  # [3, 4]
+        fx = side / (2.0 * np.tan(np.radians(30.0)))
+        ro, rd = get_rays_full(pose, (fx, fx, side / 2.0, side / 2.0), side, side)
+        return {"rays_o": ro, "rays_d": rd, "rand_pose_side": side}
+
     def train_step_batch(self, generator=None, **draws):
         """One frame batch (see frame_batch; `draws` hands in fi, inds,
-        inds_coarse, jitter)."""
+        inds_coarse, jitter), or a rand-pose batch at rand_pose's cadence."""
+        self._batch_i += 1
+        if self.rand_pose == 0 or (self.rand_pose > 0
+                                   and self._batch_i % (self.rand_pose + 1) == 0):
+            return self._rand_pose_batch(generator)
         fi, rays, batch = frame_batch(self.images, self.poses, self.intrinsics, self.H, self.W,
                                       self.num_rays, generator, error_map=self.error_map,
                                       **draws)
@@ -592,7 +629,8 @@ def make_providers(cfg, select_frames=None, device=None):
                          stereo_views=stereo, device=device)
     if not cfg.events:
         train = FramesProvider(train_images, poses, data["intrinsics"], num_rays=cfg.num_rays,
-                               error_map=bool(cfg.error_map), device=device)
+                               error_map=bool(cfg.error_map), rand_pose=cfg.rand_pose,
+                               rand_radius=cfg.radius, device=device)
     else:
         train = EventProvider(
             events, hf_ts, hf_poses, data["intrinsics"], data.get("H_ev", data["H"]),

@@ -5,10 +5,15 @@ Parameters are a flat dict of tensors with the JAX package's names and its
 [in, out] weight layout, so a JAX parameter dict converts 1:1
 (convert.params_from_jax).  `FieldStatic` holds only hyperparameters.
 
-Two grid encoders: the per-cell hash grid (`encoding="hashgrid"`, the
-reference's own, which every published config runs) and the block-packed
-grid (`"blockgrid"`, the --ff / --tcnn backbone).  The frequency / identity
-encoders and the background net raise NotImplementedError.
+Encoders: the per-cell hash grid (`encoding="hashgrid"`, the reference's
+own, which every published config runs), the block-packed grid
+(`"blockgrid"`, the --ff / --tcnn backbone), and the grid-free NeRF
+frequency encoding (`"frequency"`, 39 wide) and identity (`"none"`, 3
+wide), which have no table.  With bg_radius > 0 the background net
+(reference network.py:79-101, 153-168) colours what the rays leave
+transmitted: a 4-level 2-D hash grid of the ray's exit point on the sphere
+of bg_radius, concatenated after the direction's SH, through a bias-free
+MLP and a sigmoid (`field_background`).
 
 `EncodeReplay` serves remat_fixed=2 (train/step.py): under
 torch.utils.checkpoint it keeps each encoding of the forward pass and hands
@@ -26,11 +31,15 @@ import math
 
 import torch
 
+from enerf_torch.ops.aabb import polar_from_ray
 from enerf_torch.ops.blockgrid import BlockGridMeta, block_encode, init_block_table
+from enerf_torch.ops.freq import freq_encode, freq_output_dim
 from enerf_torch.ops.hashgrid import HashGridMeta, hash_encode, init_hash_table
 from enerf_torch.ops.scatter_accum import block_encode_fast
 from enerf_torch.ops.sh import sh_encode, sh_output_dim
 from enerf_torch.ops.trunc_exp import trunc_exp
+
+BG_LAYERS, BG_HIDDEN = 2, 64  # the background MLP's depth and width
 
 
 class FieldStatic:
@@ -60,10 +69,8 @@ class FieldStatic:
         density_bias=0.0,
         compute_dtype=torch.float32,
     ):
-        if encoding not in ("hashgrid", "blockgrid"):
-            raise NotImplementedError(f"enerf_torch field: encoding={encoding!r}")
-        if bg_radius > 0:
-            raise NotImplementedError("enerf_torch field: background net (bg_radius > 0)")
+        if encoding not in ("hashgrid", "blockgrid", "frequency", "none"):
+            raise ValueError(f"enerf_torch field: unknown encoding {encoding!r}")
         self.bound = float(bound)
         self.num_layers = num_layers
         self.hidden_dim = hidden_dim
@@ -74,6 +81,7 @@ class FieldStatic:
         self.out_dim_color = out_dim_color
         self.disable_view_direction = disable_view_direction
         self.bg_radius = float(bg_radius)
+        self.num_layers_bg, self.hidden_dim_bg = BG_LAYERS, BG_HIDDEN
         self.encoding = encoding
         self.grid_block = int(grid_block)
         self.use_fused_head = use_fused_head
@@ -86,19 +94,33 @@ class FieldStatic:
                     desired_resolution=2048 * max(self.bound, 1.0))
         if encoding == "blockgrid":
             self.grid_meta = BlockGridMeta(block=self.grid_block, **grid)
-        else:
+        elif encoding == "hashgrid":
             self.grid_meta = HashGridMeta(gridtype=gridtype, **grid)
-        self.in_dim = self.grid_meta.output_dim
+        else:  # the grid-free encoders (reference encoding.py:45-76)
+            self.grid_meta = None
+        self.in_dim = (self.grid_meta.output_dim if self.grid_meta is not None
+                       else freq_output_dim(3) if encoding == "frequency" else 3)
         self.in_dim_dir = sh_output_dim(sh_degree)
+        self.bg_grid_meta, self.in_dim_bg = None, 0
+        if self.bg_radius > 0:
+            # reference network.py:83: a much smaller 2-D grid
+            self.bg_grid_meta = HashGridMeta(
+                input_dim=2, num_levels=4, level_dim=level_dim,
+                base_resolution=base_resolution, log2_hashmap_size=log2_hashmap_size,
+                desired_resolution=2048, gridtype=gridtype)
+            self.in_dim_bg = self.bg_grid_meta.output_dim
 
     def mlp_dims(self, which):
-        """(in, out) per layer for the 'sigma' | 'color' nets."""
+        """(in, out) per layer for the 'sigma' | 'color' | 'bg' nets."""
         if which == "sigma":
             L, hid = self.num_layers, self.hidden_dim
             first, last = self.in_dim, 1 + self.geo_feat_dim
         elif which == "color":
             L, hid = self.num_layers_color, self.hidden_dim_color
             first, last = self.in_dim_dir + self.geo_feat_dim, self.out_dim_color
+        elif which == "bg":
+            L, hid = self.num_layers_bg, self.hidden_dim_bg
+            first, last = self.in_dim_bg + self.in_dim_dir, self.out_dim_color
         else:
             raise ValueError(which)
         return [(first if l == 0 else hid, last if l == L - 1 else hid)
@@ -113,14 +135,21 @@ def _init_linear(in_dim, out_dim, generator, device):
 
 
 def init_field_params(static, seed=0, device="cpu"):
-    """Parameter dict {hash_table, sigma_w*, color_w*} drawn from `seed`."""
+    """Parameter dict {hash_table (grid encoders), sigma_w*, color_w*, and
+    with the background net bg_table, bg_w*} drawn from `seed`."""
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    init_table = init_block_table if static.encoding == "blockgrid" else init_hash_table
-    params = {"hash_table": init_table(static.grid_meta, gen, device)}
+    params = {}
+    if static.grid_meta is not None:
+        init_table = init_block_table if static.encoding == "blockgrid" else init_hash_table
+        params["hash_table"] = init_table(static.grid_meta, gen, device)
     for i, (di, do) in enumerate(static.mlp_dims("sigma")):
         params[f"sigma_w{i}"] = _init_linear(di, do, gen, device)
     for i, (di, do) in enumerate(static.mlp_dims("color")):
         params[f"color_w{i}"] = _init_linear(di, do, gen, device)
+    if static.bg_radius > 0:
+        params["bg_table"] = init_hash_table(static.bg_grid_meta, gen, device)
+        for i, (di, do) in enumerate(static.mlp_dims("bg")):
+            params[f"bg_w{i}"] = _init_linear(di, do, gen, device)
     return params
 
 
@@ -168,6 +197,10 @@ class EncodeReplay:
 
 
 def _encode(params, static, x01):
+    if static.encoding == "none":
+        return x01
+    if static.encoding == "frequency":
+        return freq_encode(x01)
     table, meta = params["hash_table"], static.grid_meta
     if static.encoding == "hashgrid":
         encoder = hash_encode
@@ -231,3 +264,24 @@ def field_forward_fused(params, static, x, d):
         # exp(raw + b) == exp(raw) * e^b — bias applied outside the kernel
         sigma = sigma * math.exp(static.density_bias)
     return sigma, rgb
+
+
+def field_background(params, static, polar, d):
+    """polar: [N, 2] in [-1, 1] (aabb.polar_from_ray); d: [N, 3] -> rgb
+    [N, C]: the bg net on [SH(d), 2-D hash encoding], direction first."""
+    cd = static.compute_dtype
+    enc = hash_encode((polar + 1.0) / 2.0, params["bg_table"], static.bg_grid_meta)
+    h = torch.cat([_dir_encode(static, d).to(cd), enc.to(cd)], dim=-1)
+    return torch.sigmoid(_mlp(params, "bg", static.num_layers_bg, h, cd))
+
+
+def background(params, static, rays_o, rays_d, bg_color, C):
+    """The colour behind each ray [N, C]: the bg net at the ray's exit
+    through the sphere of bg_radius when there is one (it overrides
+    `bg_color`), else bg_color (a float or a tensor broadcastable to
+    [N, C])."""
+    N = rays_o.shape[0]
+    if static.bg_radius > 0:
+        return field_background(params, static,
+                                polar_from_ray(rays_o, rays_d, static.bg_radius), rays_d)
+    return torch.as_tensor(bg_color, dtype=torch.float32, device=rays_o.device).expand(N, C)

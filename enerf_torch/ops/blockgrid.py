@@ -12,9 +12,13 @@ point chunk, 16 levels, blk4), so `block_encode` walks the points in chunks
 and its backward never saves them: the table gradient is a plain
 `index_add_` of g (x) W into the rows, with the row ids and trilinear
 weights recomputed from the saved positions (the same design as the JAX
-package's linear-gather VJP).  Positions get no gradient (the port's
-callers pass ray samples, which are data).  ops/scatter_accum.py holds the
-other table backward, kernel K2 (`FieldStatic(fast_table_grad=True)`).
+package's linear-gather VJP).  When the positions need a gradient, the
+backward also gathers the rows again and gives the dL/dx that JAX's
+autodiff of `block_encode` gives (and `block_encode_segsum(compute_dx=True)`,
+its chunk_dx_scaled): dx_d = sum over levels of scale_l times
+<g (x) dW/dfrac_d, row>, zero outside the box.  ops/scatter_accum.py holds
+the other table backward, kernel K2 (`FieldStatic(fast_table_grad=True)`),
+whose position gradient is zero as in the JAX package.
 """
 
 import numpy as np
@@ -134,20 +138,23 @@ def block_address(x, meta, level_major=False):
     return torch.remainder(rid, per_level(m["rows"])), lo, frac
 
 
+def _axis_weights(lo, frac, meta, deriv=False):
+    """Per-axis linear weights over the row's halo cells, [..., 3, HA]:
+    1 - frac at the cell's offset, frac one past it; with `deriv` their
+    d/dfrac (-1 and 1)."""
+    p = torch.arange(meta.halo, device=lo.device)
+    l = lo[..., None]
+    f = frac[..., None]
+    zero = torch.zeros((), dtype=f.dtype, device=f.device)
+    lo_w, hi_w = (-torch.ones_like(f), torch.ones_like(f)) if deriv else (1.0 - f, f)
+    return torch.where(p == l, lo_w, zero) + torch.where(p == l + 1, hi_w, zero)
+
+
 def _trilinear_weights(lo, frac, meta):
     """lo [..., 3] int, frac [..., 3] f32 -> W [..., row_cells] f32 with
     W[(px*HA + py)*HA + pz] = wx(px) * wy(py) * wz(pz)."""
-    HA = meta.halo
-    p = torch.arange(HA, device=lo.device)
-
-    def axis_w(d):
-        l = lo[..., d, None]
-        f = frac[..., d, None]
-        zero = torch.zeros((), dtype=f.dtype, device=f.device)
-        return (torch.where(p == l, 1.0 - f, zero)
-                + torch.where(p == l + 1, f, zero))  # [..., HA]
-
-    wx, wy, wz = axis_w(0), axis_w(1), axis_w(2)
+    a = _axis_weights(lo, frac, meta)
+    wx, wy, wz = a[..., 0, :], a[..., 1, :], a[..., 2, :]
     W = (wx[..., :, None, None] * wy[..., None, :, None]) * wz[..., None, None, :]
     return W.reshape(*lo.shape[:-1], meta.row_cells)
 
@@ -188,20 +195,36 @@ def encode_forward(x01, table, meta, point_chunk, out=None):
     return out.reshape(N, meta.output_dim), x, oob
 
 
+def chunk_position_grad(x, g, table, meta):
+    """dL/dx [n, 3] of a chunk of clipped positions x [n, 3] for the output
+    gradient g [n, L, C] (rows outside the box already zeroed): the rows
+    gathered again, contracted with g over the channels, then with dW/dfrac_d
+    over the row's cells, times each level's scale (frac = x * scale + 0.5 -
+    floor), summed over the levels."""
+    n = x.shape[0]
+    L, C, HA = meta.num_levels, meta.level_dim, meta.halo
+    rid_local, lo, frac = block_address(x, meta)
+    m = meta.tensors(x.device)
+    rows = table[rid_local + m["offsets"][None, :]].float().view(n, L, C, HA, HA, HA)
+    gr = torch.einsum("nlc,nlcpqr->nlpqr", g, rows)
+    w, dw = _axis_weights(lo, frac, meta), _axis_weights(lo, frac, meta, deriv=True)
+    dx = [torch.einsum("nlpqr,nlp,nlq,nlr->nl", gr, *[
+        (dw if e == d else w)[..., e, :] for e in range(3)]) for d in range(3)]
+    return (torch.stack(dx, -1) * m["scales"][None, :, None]).sum(1)
+
+
 class _BlockEncode(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, table, meta, point_chunk, out):
-        out, x, oob = encode_forward(x, table, meta, point_chunk, out)
-        ctx.save_for_backward(x, oob)
-        ctx.meta, ctx.point_chunk = meta, point_chunk
+    def forward(ctx, x01, table, meta, point_chunk, out):
+        out, x, oob = encode_forward(x01, table, meta, point_chunk, out)
+        ctx.save_for_backward(x, oob, table if ctx.needs_input_grad[0] else None)
+        ctx.meta, ctx.point_chunk, ctx.x_dtype = meta, point_chunk, x01.dtype
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
         return out
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.needs_input_grad[0]:
-            raise NotImplementedError("block_encode: position gradients")
-        x, oob = ctx.saved_tensors
+        x, oob, table = ctx.saved_tensors
         meta, chunk = ctx.meta, ctx.point_chunk
         L, C, RC = meta.num_levels, meta.level_dim, meta.row_cells
         g = g.reshape(-1, L, C).to(torch.float32).masked_fill(oob[:, None, None], 0.0)
@@ -210,11 +233,15 @@ class _BlockEncode(torch.autograd.Function):
             rid, W = _chunk_rows(x[s:s + chunk], meta)
             contrib = g[s:s + chunk, :, :, None] * W[:, :, None, :]  # [n, L, C, RC]
             grad.index_add_(0, rid.reshape(-1), contrib.reshape(-1, C * RC))
-        return None, grad.to(ctx.table_dtype), None, None, None
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.cat([chunk_position_grad(x[s:s + chunk], g[s:s + chunk], table, meta)
+                            for s in range(0, x.shape[0], chunk)]).to(ctx.x_dtype)
+        return dx, grad.to(ctx.table_dtype), None, None, None
 
 
 def block_encode(x01, table, meta, point_chunk=1 << 16, out=None):
     """Encode [N, 3] positions in [0, 1] -> [N, L*C]; samples outside the
-    unit box encode to 0.  Differentiable in `table`.  `out`: a kept
+    unit box encode to 0.  Differentiable in `table` and in `x01`.  `out`: a kept
     encoding of the same positions, returned (copied) without the gather."""
     return _BlockEncode.apply(x01, table, meta, point_chunk, out)

@@ -1,23 +1,27 @@
 """Multiresolution hash-grid encoding (instant-ngp section 3).
 
 Counterpart of enerf_tpu/ops/hashgrid.py (reference gridencoder.cu:34-222,
-grid.py:113-135): per level, pos = x01 * scale + 0.5; each of the 2^3
+grid.py:113-135): per level, pos = x01 * scale + 0.5; each of the 2^D
 corners of the sample's cell is addressed by the dense linear index while
 the level fits its table, else by the spatial hash x*1 ^ y*2654435761 ^
-z*805459861, modulo the level's table size; the corner embeddings are
-blended trilinearly.  Samples outside [0, 1]^3 encode to 0.
+z*805459861 (the first D primes), modulo the level's table size; the corner
+embeddings are blended (bi/tri)linearly.  Samples outside [0, 1]^D encode
+to 0.  D = 3 for the field, D = 2 for the background net's sphere
+coordinates.
 
 The uint32 arithmetic of the CUDA and XLA versions (the dense index and the
 hash wrap at 2^32) is done in int64, masked with 0xFFFFFFFF after each
 product and each sum, which gives the same indices; torch's uint32 dtype
 has only partial operator support.
 
-`hash_address` is the address step alone (flat table indices and trilinear
-weights per sample, level and corner), so tests can hand the same addresses
-to both packages.  The table gradient is the gather's VJP, an `index_add_`
-of w * g per corner into the table; `hash_encode`'s autograd node keeps the
-[N, L, 8] indices (int32) and weights, not the gathered values.  Positions
-get no gradient (the port's callers pass ray samples, which are data).
+`hash_address` is the address step alone (flat table indices and weights
+per sample, level and corner), so tests can hand the same addresses to
+both packages.  The table gradient is the gather's VJP, an `index_add_` of
+w * g per corner into the table; `hash_encode`'s autograd node keeps the
+[N, L, 2^D] indices (int32) and weights, not the gathered values.  When the
+positions need a gradient it is the one JAX's autodiff gives (reference
+dy_dx, gridencoder.cu:176-221): dx_d = sum over levels of scale_l times
+sum over corners of dw/dfrac_d * <g, table row>, zero outside the box.
 """
 
 import numpy as np
@@ -26,16 +30,15 @@ import torch
 # Hash primes, reference gridencoder.cu:41 (instant-ngp constants)
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
-CORNERS = 8
 
 
 class HashGridMeta:
     """Static per-level constants (numpy), identical to enerf_tpu's
-    HashGridMeta (reference grid.py:113-126) for 3-D inputs (the 2-D grid
-    of the background net is not ported)."""
+    HashGridMeta (reference grid.py:113-126), for 2-D or 3-D inputs."""
 
     def __init__(
         self,
+        input_dim=3,
         num_levels=16,
         level_dim=2,
         per_level_scale=2.0,
@@ -47,7 +50,9 @@ class HashGridMeta:
         if desired_resolution is not None and num_levels > 1:
             per_level_scale = float(
                 np.exp2(np.log2(desired_resolution / base_resolution) / (num_levels - 1)))
-        self.input_dim = 3
+        if input_dim not in (2, 3):
+            raise ValueError(f"HashGridMeta: input_dim must be 2 or 3, got {input_dim}")
+        self.input_dim = int(input_dim)
         self.num_levels = int(num_levels)
         self.level_dim = int(level_dim)
         self.per_level_scale = float(per_level_scale)
@@ -118,37 +123,46 @@ def init_hash_table(meta, generator=None, device="cpu"):
     return t.uniform_(-1e-4, 1e-4, generator=generator)
 
 
-def hash_address(x01, meta):
-    """The address step for positions x01 [N, 3] (in [0, 1] inside the box).
+def _corner_bits(D):
+    """[2^D][D] offsets: corner c takes bit d of c along axis d (JAX's order)."""
+    return [[(c >> d) & 1 for d in range(D)] for c in range(2 ** D)]
 
-    Returns (idx [N, L, 8] int32 flat table rows, level offsets added;
-    w [N, L, 8] f32 trilinear weights; oob [N] bool, samples outside the
-    unit box).  Corner c takes bit d of c as its offset along axis d, and
-    its weight is the product over d of frac or 1 - frac, in axis order.
-    """
+
+def _cell(x01, meta):
+    """Clipped positions -> (pg [N, L, D] int64 cell, frac [N, L, D] f32,
+    oob [N] samples outside the unit box)."""
     x = x01.to(torch.float32)
     oob = ((x < 0.0) | (x > 1.0)).any(dim=-1)
     x = x.clamp(0.0, 1.0)
-    m = meta.tensors(x.device)
-    pos = x[:, None, :] * m["scales"][None, :, None] + 0.5  # [N, L, 3]
+    pos = x[:, None, :] * meta.tensors(x.device)["scales"][None, :, None] + 0.5  # [N, L, D]
     pg = torch.floor(pos)
-    frac = pos - pg
-    pg = pg.to(torch.int64)
+    return pg.to(torch.int64), pos - pg, oob
+
+
+def hash_address(x01, meta):
+    """The address step for positions x01 [N, D] (in [0, 1] inside the box).
+
+    Returns (idx [N, L, 2^D] int32 flat table rows, level offsets added;
+    w [N, L, 2^D] f32 weights; oob [N] bool, samples outside the unit
+    box).  Corner c takes bit d of c as its offset along axis d, and its
+    weight is the product over d of frac or 1 - frac, in axis order.
+    """
+    D = meta.input_dim
+    pg, frac, oob = _cell(x01, meta)
+    m = meta.tensors(pg.device)
     strides = m["strides"][None]
     idx, w = [], []
-    for c in range(CORNERS):
-        bits = [(c >> d) & 1 for d in range(3)]
-        corner = [pg[..., d] + bits[d] for d in range(3)]
+    for bits in _corner_bits(D):
+        corner = [pg[..., d] + bits[d] for d in range(D)]
         wc = None
-        for d in range(3):
+        for d in range(D):
             f = frac[..., d] if bits[d] else 1.0 - frac[..., d]
             wc = f if wc is None else wc * f
         dense = (corner[0] * strides[..., 0]) & _U32
-        dense = (dense + ((corner[1] * strides[..., 1]) & _U32)) & _U32
-        dense = (dense + ((corner[2] * strides[..., 2]) & _U32)) & _U32
         h = (corner[0] * _PRIMES[0]) & _U32
-        h = h ^ ((corner[1] * _PRIMES[1]) & _U32)
-        h = h ^ ((corner[2] * _PRIMES[2]) & _U32)
+        for d in range(1, D):
+            dense = (dense + ((corner[d] * strides[..., d]) & _U32)) & _U32
+            h = h ^ ((corner[d] * _PRIMES[d]) & _U32)
         flat = torch.remainder(torch.where(m["hashed"][None], h, dense), m["sizes"][None])
         idx.append((flat + m["offsets"][None]).to(torch.int32))
         w.append(wc)
@@ -157,10 +171,10 @@ def hash_address(x01, meta):
 
 def encode_from_address(idx, w, oob, table):
     """[N, L * C] encoding from the addresses: the per-corner gather and the
-    trilinear blend, summed over the corners in order."""
-    N, L, _ = idx.shape
+    blend, summed over the corners in order."""
+    N, L, corners = idx.shape
     out = None
-    for c in range(CORNERS):
+    for c in range(corners):
         term = w[..., c, None].to(table.dtype) * table[idx[..., c]]  # [N, L, C]
         out = term if out is None else out + term
     out = out.masked_fill(oob[:, None, None], 0.0)
@@ -170,37 +184,66 @@ def encode_from_address(idx, w, oob, table):
 def table_grad_from_address(idx, w, oob, g, table_shape):
     """The f32 table gradient of `encode_from_address` for the output
     gradient g [N, L * C]: per corner, index_add_ of w * g into the rows."""
-    N, L, _ = idx.shape
+    N, L, corners = idx.shape
     C = table_shape[1]
     g = g.reshape(N, L, C).to(torch.float32).masked_fill(oob[:, None, None], 0.0)
     grad = torch.zeros(table_shape, dtype=torch.float32, device=g.device)
-    for c in range(CORNERS):
+    for c in range(corners):
         grad.index_add_(0, idx[..., c].reshape(-1), (w[..., c, None] * g).reshape(-1, C))
     return grad
+
+
+def position_grad_from_address(x01, idx, oob, table, g, meta):
+    """dL/dx01 [N, D] of `encode_from_address` for the output gradient g
+    [N, L * C]: sum over levels of scale_l times sum over corners of
+    dw/dfrac_d * <g, table row>; zero for samples outside the box (their
+    encoding is the constant 0) and nothing from floor()."""
+    N, L, corners = idx.shape
+    D = meta.input_dim
+    _, frac, _ = _cell(x01, meta)
+    g = g.reshape(N, L, -1).to(torch.float32).masked_fill(oob[:, None, None], 0.0)
+    # <g, row> of each corner: [N, L, 2^D]
+    gv = torch.stack([(g * table[idx[..., c]].float()).sum(-1) for c in range(corners)], -1)
+    dx = []
+    for d in range(D):
+        acc = None
+        for c, bits in enumerate(_corner_bits(D)):
+            dw = None  # dw_c / dfrac_d: +-1 times the other axes' factors
+            for e in range(D):
+                if e != d:
+                    f = frac[..., e] if bits[e] else 1.0 - frac[..., e]
+                    dw = f if dw is None else dw * f
+            term = dw * gv[..., c]
+            term = term if bits[d] else -term
+            acc = term if acc is None else acc + term
+        dx.append((acc * meta.tensors(g.device)["scales"][None]).sum(-1))
+    return torch.stack(dx, -1).to(x01.dtype)
 
 
 class _HashEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x01, table, meta, out):
         idx, w, oob = hash_address(x01, meta)
-        ctx.save_for_backward(idx, w, oob)
-        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        dx = ctx.needs_input_grad[0]
+        ctx.save_for_backward(idx, w, oob, x01 if dx else None, table if dx else None)
+        ctx.meta, ctx.table_shape, ctx.table_dtype = meta, table.shape, table.dtype
         if out is not None:  # replay of a kept encoding (remat_fixed=2)
             return out.clone()
         return encode_from_address(idx, w, oob, table)
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.needs_input_grad[0]:
-            raise NotImplementedError("hash_encode: position gradients")
-        idx, w, oob = ctx.saved_tensors
+        idx, w, oob, x01, table = ctx.saved_tensors
         grad = table_grad_from_address(idx, w, oob, g, ctx.table_shape)
-        return None, grad.to(ctx.table_dtype), None, None
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = position_grad_from_address(x01, idx, oob, table, g, ctx.meta)
+        return dx, grad.to(ctx.table_dtype), None, None
 
 
 def hash_encode(x01, table, meta, out=None):
-    """Encode [N, 3] positions in [0, 1] -> [N, L * C] (level-major, then
+    """Encode [N, D] positions in [0, 1] -> [N, L * C] (level-major, then
     channel); samples outside the unit box encode to 0.  Differentiable in
-    `table`.  `out`: a previously computed encoding of the same positions,
+    `table` and in `x01`.  `out`: a previously computed encoding of the same positions,
     returned (copied) without the gather, with the same table backward."""
     return _HashEncode.apply(x01, table, meta, out)

@@ -16,7 +16,7 @@ host sync.  `march_rays.host_syncs` counts them.
 
 import torch
 
-from enerf_torch.models.field import field_forward, field_forward_fused
+from enerf_torch.models.field import background, field_forward, field_forward_fused
 from enerf_torch.ops.aabb import aabb_tensor, near_far_from_aabb
 from enerf_torch.render.occupancy import GRID_SIZE
 
@@ -185,7 +185,8 @@ def composite_from_march(params, static, rays_o, rays_d, ts, dts, valid, nears,
     compact_frac: evaluate the field only on each ray's first
     S_eff = S * compact_frac valid samples, packed by a stable per-ray sort
     (valid samples beyond the budget are dropped, like the reference's
-    capped stream compaction).  bg_color: float or [N, C] tensor.
+    capped stream compaction).  bg_color: float or [N, C] tensor; with the
+    background net (bg_radius > 0) its colour instead.
     """
     N, num_samples = ts.shape
     bound = static.bound
@@ -213,8 +214,7 @@ def composite_from_march(params, static, rays_o, rays_d, ts, dts, valid, nears,
     weights = alphas * trans
     weights_sum = weights.sum(-1)
     depth_t = (weights * ts).sum(-1)
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=ts.device)
-    bg = bg.expand(N, C)
+    bg = background(params, static, rays_o, rays_d, bg_color, C)
     image = (weights[..., None] * rgbs).sum(-2) + (1.0 - weights_sum)[:, None] * bg
     near_safe = torch.where(nears < 1e30, nears, 0.0)
     far_safe = torch.where(fars < 1e30, fars, 1.0)
@@ -252,7 +252,8 @@ def render_rays_infer(params, static, occ_bitfield, rays_o, rays_d, *,
     """Alive-ray inference renderer (reference raymarching.cu:701-938,
     renderer.py:344-401): march the alive rays one [N, block] window at a
     time, composite incrementally, retire a ray once its transmittance drops
-    below 1e-4, stop when every ray is dead (one host sync per window).
+    below 1e-4, stop when every ray is dead (one host sync per window); then
+    what is left transmitted shows bg_color, or the background net's colour.
     Returns dict(image=[N, C], depth=[N], weights_sum=[N])."""
     N = rays_o.shape[0]
     dev = rays_o.device
@@ -297,7 +298,7 @@ def render_rays_infer(params, static, occ_bitfield, rays_o, rays_d, *,
         T = T * one_m.prod(-1)
         t = torch.where(live, t_end, t)
 
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev).expand(N, C)
+    bg = background(params, static, rays_o, rays_d, bg_color, C)
     near_safe = torch.where(nears < 1e30, nears, 0.0)
     far_safe = torch.where(fars < 1e30, fars, 1.0)
     depth = (dep - near_safe).clamp(min=0.0) / (far_safe - near_safe).clamp(min=1e-6)

@@ -18,7 +18,7 @@ tests can hand in the JAX package's draws.  `field_fns` overrides
 
 import torch
 
-from enerf_torch.models.field import field_color, field_density
+from enerf_torch.models.field import background, field_color, field_density
 from enerf_torch.ops.aabb import aabb_tensor, near_far_from_aabb
 from enerf_torch.ops.composite import composite_rays
 
@@ -53,7 +53,8 @@ def render_rays(params, static, rays_o, rays_d, *, num_steps=128, upsample_steps
                 bg_color=1.0, perturb=False, jitter=None, u=None, generator=None,
                 train=True, min_near=0.2, density_scale=1.0, field_fns=None):
     """Render a flat batch of rays [N, 3] -> dict(image [N, C], depth [N],
-    weights_sum [N]).  bg_color: float or a tensor broadcastable to [N, C]."""
+    weights_sum [N]).  bg_color: float or a tensor broadcastable to [N, C];
+    with the background net (bg_radius > 0) its colour instead."""
     density_fn, color_fn = field_fns if field_fns is not None else (
         field_density, field_color)
     N = rays_o.shape[0]
@@ -111,7 +112,7 @@ def render_rays(params, static, rays_o, rays_d, *, num_steps=128, upsample_steps
     dirs = rays_d[:, None, :].expand(N, T_total, 3).reshape(-1, 3)
     rgbs = color_fn(params, static, dirs, geo_feat)
     C = rgbs.shape[-1]
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev).expand(N, C)
+    bg = background(params, static, rays_o, rays_d, bg_color, C)
     out = composite_rays(sigmas.reshape(N, T_total), rgbs.reshape(N, T_total, C), deltas,
                          z_vals, nears, fars, bg, density_scale=density_scale)
     return {"image": out["image"], "depth": out["depth"], "weights_sum": out["weights_sum"]}

@@ -9,6 +9,9 @@ MSE on random pixels of a frame against a per-pixel random background,
 weighted by weight_loss_rgb; with negative_event_sampling the no-event
 pair, whose log-intensity change is held below the threshold by a hinge;
 then Adam + EMA.  The frames step (events=0): the frame term alone, then
+the same update.  The CLIP step (rand_pose batches): one render of a
+random pose's full side x side ray grid against a white background,
+scored by 1 - <embed(image), text feature> (train/clip_guidance.py), then
 the same update.
 
 `use_march` selects the occupancy-march renderer (cuda_ray); otherwise the
@@ -19,7 +22,7 @@ gives the march_warmup phase's statics.
 
 Random draws (the backgrounds, the jitter and PDF draws of each render)
 come from a torch.Generator, or from `noise` when a test hands in the JAX
-package's draws.  The CLIP step is not ported.
+package's draws.
 """
 
 from typing import Any, NamedTuple
@@ -61,6 +64,8 @@ class StepStatics(NamedTuple):
     w_no_ev: float = 1.0
     remat_fixed: int = 0
     warmup_num_steps: int = 0
+    # the rand-pose step's image embedder (train/clip_guidance.StubEmbedder)
+    clip_embedder: Any = None
 
 
 def distortion_loss(weights, ts, dts):
@@ -127,15 +132,16 @@ def _render(params, ss, rays_o, rays_d, bg, jitter, occ_bitfield, u=None):
     return fixed()
 
 
-def draw_noise(ss, n_rays, generator, device, n_no_ev=0, n_frames=0):
+def draw_noise(ss, n_rays, generator, device, n_no_ev=0, n_frames=0, n_clip=0):
     """The step's random draws: with n_rays > 0 the event pair's bg [1, C]
     and each render's jitter (`jitter1`, `jitter2`: [N] for the march,
     [N, num_steps] for the fixed-step renderer, plus `u1`, `u2`
     [N, upsample_steps] with upsampling); with n_no_ev > 0 the no-event
     pair's (`bg_no_ev`, `jitter_no_ev1/2`, `u_no_ev1/2`); with n_frames > 0
     the frame term's per-pixel bg [n_frames, C] and its render's
-    (`bg_frames`, `jitter_frames`, `u_frames`).  The JAX step's keys k_bg,
-    k1, k2; k3, k4, k5; kf."""
+    (`bg_frames`, `jitter_frames`, `u_frames`); with n_clip > 0 the CLIP
+    step's render's (`jitter_clip`, `u_clip`).  The JAX step's keys k_bg,
+    k1, k2; k3, k4, k5; kf; the CLIP step's rng."""
     def rand(*shape):
         return torch.rand(*shape, device=device, generator=generator)
 
@@ -157,6 +163,8 @@ def draw_noise(ss, n_rays, generator, device, n_no_ev=0, n_frames=0):
     if n_frames:
         noise["bg_frames"] = rand(n_frames, ss.out_dim_color)
         noise.update(render_noise(n_frames, "_frames"))
+    if n_clip:
+        noise.update(render_noise(n_clip, "_clip"))
     return noise
 
 
@@ -271,3 +279,31 @@ def train_step_frames(state, batch, ss, occ, noise=None, generator=None):
     state.apply_updates()
     return {"loss": loss.detach(), "loss_frames": aux["loss_frames"].detach(),
             "per_ray_loss": aux["per_ray_loss"].detach()}
+
+
+def clip_loss_fn(params, ss, batch, noise, text_feat, side, occ=None):
+    """Semantic guidance on a random-pose render: the side x side grid
+    rendered against a white background (the bg net's colour with
+    bg_radius > 0), embedded by ss.clip_embedder, 1 - cos against
+    text_feat [dim]."""
+    C = ss.out_dim_color
+    bg = torch.ones(1, C, device=batch["rays_o"].device)
+    out = _render(params, ss, batch["rays_o"], batch["rays_d"], bg, noise["jitter_clip"], occ,
+                  noise.get("u_clip"))
+    img = out["image"].reshape(side, side, C)
+    loss = 1.0 - (ss.clip_embedder(img) * text_feat).sum()
+    return loss, {"loss_clip": loss}
+
+
+def train_step_clip(state, batch, ss, occ, text_feat, side, noise=None, generator=None):
+    """One rand-pose step: the CLIP loss of a side x side render, backward,
+    Adam + EMA on `state` (in place).  Returns the detached loss and
+    loss_clip."""
+    if noise is None:
+        noise = draw_noise(ss, 0, generator, batch["rays_o"].device,
+                           n_clip=batch["rays_o"].shape[0])
+    state.zero_grad()
+    loss, aux = clip_loss_fn(state.params, ss, batch, noise, text_feat, side, occ)
+    loss.backward()
+    state.apply_updates()
+    return {"loss": loss.detach(), "loss_clip": aux["loss_clip"].detach()}

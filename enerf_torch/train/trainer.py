@@ -13,7 +13,9 @@ Counterpart of enerf_tpu/train/trainer.py (reference nerf/utils.py:289-1416):
   - the per-step loop of `train_step` (JAX's `_step_fn` with the loop's
     cadence, also the viewer's step): the occupancy update, the event
     step, or with events=0 the frames step followed by the error map's
-    update; the fixed-step renderer for the first march_warmup steps; then
+    update, or for a rand-pose batch the CLIP step (rand_pose with
+    clip_text, train/clip_guidance.py); the fixed-step renderer for the
+    first march_warmup steps; then
     the `[train]` log line, the no-event epoch gate and the `--profile N`
     trace of steps N+1..2N (utils/profiling.py, <workspace>/profile/);
   - the per-epoch tail: epoch loss stats, a rotating checkpoint every
@@ -48,10 +50,11 @@ from enerf_torch.render.occupancy import init_occupancy, mark_untrained_grid, up
 from enerf_torch.render.renderer import render_rays_staged
 from enerf_torch.train import metrics as M
 from enerf_torch.train.checkpoints import CheckpointManager, load_checkpoint
+from enerf_torch.train.clip_guidance import CLIPGuidance, StubEmbedder
 from enerf_torch.train.losses import rgb_to_luma
 from enerf_torch.train.state import TrainState
 from enerf_torch.train.step import (
-    StepStatics, train_step_events, train_step_frames, warm_statics,
+    StepStatics, train_step_clip, train_step_events, train_step_frames, warm_statics,
 )
 from enerf_torch.utils import profiling
 from enerf_torch.utils.mesh import extract_fields, marching_tets, to_world, write_obj, write_ply
@@ -116,6 +119,11 @@ class Trainer:
             remat_fixed=cfg.remat_fixed,
             warmup_num_steps=cfg.warmup_num_steps,
         )
+        # rand-pose CLIP guidance (reference main_nerf.py:183 + clip_utils)
+        self.clip_guidance = None
+        if cfg.rand_pose >= 0 and cfg.clip_text:
+            self.clip_guidance = CLIPGuidance(cfg.clip_text, StubEmbedder(device=self.device))
+            self.ss = self.ss._replace(clip_embedder=self.clip_guidance.embedder)
         params = init_field_params(self.static, cfg.seed, self.device)
         self.state = TrainState(params, cfg.lr, cfg.iters)
         # the occupancy grid exists on the march path only (cuda_ray)
@@ -267,7 +275,8 @@ class Trainer:
         `_step_fn` with the loop's cadence): the occupancy update every 16
         steps before the step (march path, until occ_freeze_after), one
         batch, the event or frames step (the fixed-step renderer for the
-        first march_warmup steps), the error map's update.  Returns aux."""
+        first march_warmup steps), the error map's update; a rand-pose batch
+        takes the CLIP step instead.  Returns aux."""
         cfg, step = self.cfg, self.state.step
         freeze = cfg.occ_freeze_after > 0 and step >= cfg.occ_freeze_after
         if self.occupancy is not None and step % 16 == 0 and not freeze:
@@ -277,6 +286,13 @@ class Trainer:
         batch = provider.train_step_batch(self.generator)
         ss = warm_statics(self.ss) if step < cfg.march_warmup else self.ss
         occ = self.occupancy.occ_bitfield if self.occupancy is not None else None
+        if "rand_pose_side" in batch:  # no error-map update on this batch
+            if self.clip_guidance is None:  # JAX asserts (trainer.py:250)
+                raise ValueError("--rand_pose >= 0 gives rand-pose batches, which need "
+                                 "--clip_text (the CLIP guidance's text)")
+            side = batch.pop("rand_pose_side")
+            return train_step_clip(self.state, batch, ss, occ, self.clip_guidance.text_feat,
+                                   side, generator=self.generator)
         step_fn = train_step_events if cfg.events else train_step_frames
         aux = step_fn(self.state, batch, ss, occ, generator=self.generator)
         if cfg.error_map and hasattr(provider, "update_error_map"):

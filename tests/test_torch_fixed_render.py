@@ -85,7 +85,7 @@ def test_render_rays_matches_reference_golden(tag):
     field: test_golden.py's tolerances."""
     g, kw = _golden_inputs(tag)
     fns = _torch_fns(t(g["wg"]), t(g["wd"]))
-    static = types.SimpleNamespace(bound=float(g["bound"]))
+    static = types.SimpleNamespace(bound=float(g["bound"]), bg_radius=-1.0)
 
     def render(s):
         return trend.render_rays({"s": s}, static, t(g["rays_o"]), t(g["rays_d"]),
@@ -120,7 +120,7 @@ def test_render_rays_training_noise_matches_jax(tag):
     k_pert, k_pdf = jax.random.split(rng)
     jitter = t(jax.random.uniform(k_pert, (N, kw["num_steps"])))
     u = t(jax.random.uniform(k_pdf, (N, max(kw["upsample_steps"], 1))))
-    static_t = types.SimpleNamespace(bound=float(g["bound"]))
+    static_t = types.SimpleNamespace(bound=float(g["bound"]), bg_radius=-1.0)
     fns_t = _torch_fns(t(g["wg"]), t(g["wd"]))
     s = torch.tensor(1.0, requires_grad=True)
     out_t = trend.render_rays({"s": s}, static_t, t(g["rays_o"]), t(g["rays_d"]),
@@ -137,7 +137,7 @@ def test_render_rays_training_noise_matches_jax(tag):
 
 def test_staged_rendering_equals_one_shot():
     g, kw = _golden_inputs("ups")
-    static = types.SimpleNamespace(bound=float(g["bound"]))
+    static = types.SimpleNamespace(bound=float(g["bound"]), bg_radius=-1.0)
     fns = _torch_fns(t(g["wg"]), t(g["wd"]))
     args = ({"s": torch.tensor(1.0)}, static, t(g["rays_o"]), t(g["rays_d"]))
     one = trend.render_rays(*args, perturb=False, train=False, field_fns=fns, **kw)

@@ -335,5 +335,8 @@ def test_check_supported_takes_frames_esim_and_the_error_map():
     for extra in ([], ["--error_map"], ["--events", "1", "--images_corrupted", "1"],
                   ["--e2vid", "1"], ["--mode", "tumvie"], ["--mode", "eds"]):
         check_supported(build_config(["--config", spiral, *extra]))
-    with pytest.raises(NotImplementedError):
-        check_supported(build_config(["--config", spiral, "--rand_pose", "0"]))
+    # the CLIP step is ported: rand_pose is accepted (the trainer asks for
+    # --clip_text, test_torch_clip.py)
+    for extra in (["--rand_pose", "0"], ["--rand_pose", "4", "--clip_text", "a carpet"]):
+        cfg = build_config(["--config", spiral, *extra])
+        assert check_supported(cfg) is cfg

@@ -194,9 +194,25 @@ def test_hash_encode_autograd_replay_and_position_grads():
     kept = th.hash_encode(x, table, mt, out=out.detach())
     assert torch.equal(kept, out)
     assert torch.equal(torch.autograd.grad(kept, table, g)[0], gt)
-    with pytest.raises(NotImplementedError):
-        xg = x.clone().requires_grad_()
-        th.hash_encode(xg, table, mt).sum().backward()
+    # positions get dL/dx (JAX parity: test_torch_encodings.py): float64
+    # autograd of the blend on the same addresses and the same f32 frac
+    # (d frac / dx = scale; floor() contributes nothing); 0 outside the
+    # box; the same through the replay
+    xg = x.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(th.hash_encode(xg, table, mt), xg, g)
+    (dx_kept,) = torch.autograd.grad(th.hash_encode(xg, table, mt, out=out.detach()), xg, g)
+    assert torch.equal(dx_kept, dx) and (dx[oob] == 0).all()
+    xd = x.double().clamp(0.0, 1.0).requires_grad_()
+    pos = xd[:, None, :] * torch.as_tensor(mt.scales).double()[None, :, None]
+    frac = th._cell(x, mt)[1].double() + (pos - pos.detach())
+    ref = 0.0
+    for c in range(8):
+        wc = 1.0
+        for d in range(3):
+            wc = wc * (frac[..., d] if (c >> d) & 1 else 1.0 - frac[..., d])
+        ref = ref + wc[..., None] * table.detach().double()[idx[..., c].long()]
+    (dx_ref,) = torch.autograd.grad((ref.reshape(500, -1)[~oob] * g[~oob].double()).sum(), xd)
+    np.testing.assert_allclose(n(dx), n(dx_ref), rtol=0, atol=1e-5 * float(dx_ref.abs().max()))
 
 
 def _golden_field():

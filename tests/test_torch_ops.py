@@ -127,8 +127,26 @@ def test_block_encode_forward_and_table_vjp(levels, log2, block, npts):
 
 
 def test_block_encode_refuses_position_grads():
+    """(The name is from when block_encode refused dL/dx.)  It now gives it:
+    equal to float64 autograd of the forward's own math, in which floor()
+    contributes nothing, and 0 outside the box (JAX parity:
+    test_torch_encodings.py)."""
     meta = bg.BlockGridMeta(num_levels=2, log2_hashmap_size=10)
-    table = bg.init_block_table(meta, torch.Generator().manual_seed(0))
-    x = torch.rand(8, 3, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        bg.block_encode(x, table, meta).sum().backward()
+    gen = torch.Generator().manual_seed(0)
+    table = torch.rand(meta.total_rows, meta.row_cells * 2, generator=gen) * 2 - 1
+    x = torch.rand(8, 3, generator=gen)
+    x[0, 1] = 1.02  # outside the box
+    g = torch.randn(8, meta.output_dim, generator=gen)
+    xg = x.clone().requires_grad_()
+    (bg.block_encode(xg, table, meta) * g).sum().backward()
+    xd = x.double().clamp(0.0, 1.0).requires_grad_()
+    m = meta.tensors("cpu")
+    pos = xd[:, None, :] * m["scales"].double()[None, :, None] + 0.5
+    frac = pos - torch.floor(pos)
+    rid, lo, _ = bg.block_address(x.clamp(0.0, 1.0), meta)
+    rows = table.double()[rid + m["offsets"][None]].view(8, 2, 2, meta.row_cells)
+    ref = torch.einsum("nlcr,nlr->nlc", rows, bg._trilinear_weights(lo, frac, meta))
+    (ref.reshape(8, -1)[1:] * g[1:].double()).sum().backward()
+    assert (xg.grad[0] == 0).all() and xg.grad[1:].abs().max() > 1.0
+    np.testing.assert_allclose(n(xg.grad), n(xd.grad), rtol=0,
+                               atol=1e-5 * float(xd.grad.abs().max()))

@@ -95,9 +95,11 @@ def test_config_parses_tpu_flags_and_refuses_missing_paths():
     # the tumvie / eds loaders are ported (with the stereo event views)
     for config in ("mocapDesk2/mocapDesk2_enerf.txt", "eds11/eds11_enerf.txt"):
         check_supported(build_config(["--config", os.path.join(REPO, "configs", config)]))
-    for extra in (["--bg_radius", "2"], ["--encoding", "frequency"], ["--rand_pose", "0"]):
-        with pytest.raises(NotImplementedError):
-            check_supported(_cfg(*extra))
+    # and so are the background net, the grid-free encoders and the CLIP step
+    for extra in (["--bg_radius", "2"], ["--encoding", "frequency"], ["--encoding", "none"],
+                  ["--rand_pose", "0", "--clip_text", "a ball"]):
+        cfg = _cfg(*extra)
+        assert check_supported(cfg) is cfg
     demo = os.path.join(REPO, "configs", "synthetic_demo.txt")
     check_supported(build_config(["--config", demo, "--ff", "-O"]))
     # the published configs' path: hash grid, fixed-step renderer, frames
