@@ -127,7 +127,29 @@ Phases (one line each; any failure exits non-zero before the result lines):
  21. position gradients: dL/dx of hash_encode and block_encode (16 x 2,
      2^19, block 4) at 1,048,576 points, the card against the CPU on the
      same inputs (relative 1e-5 of the largest |dx|), and the backward's
-     time on the card with and without dx.
+     time on the card with and without dx;
+ 22. data parallelism, one rank over NCCL on cuda:0 in this process: the
+     main path's trainer (phase 4's config) with a mesh; update_occupancy_
+     sharded equal bit for bit to the serial update on the same jitter; one
+     data-parallel step of 4096 pairs against the plain step on the same
+     batch and noise (deterministic index_add_ on both), max |dparam|
+     <= 1e-6, loss within 1e-4 relative; K1's launches in the step, the
+     gradient all_reduce's ms;
+ 23. two ranks over gloo, both on cuda:0 (make_mesh(devices=...); NCCL
+     refuses two ranks on one card), started by parallel.mesh.spawn as
+     --mesh_shape starts them: (a) phase 22's comparison at 2 x 2048 pairs
+     against one process's step on the whole batch (loss rtol 1e-4, params
+     atol 1e-5 wherever the gradient is clear of the two sums' rounding,
+     the count of entries within it that moved apart), the ranks bit-equal,
+     K1's launches and the all_reduce's ms per rank; (c) one validation
+     view through make_sharded_render against render_rays_march of the
+     whole view (atol 1e-5), K1's launches per rank; (b)
+     configs/spiral1_sparse/spiral1_sparse_enerf.txt as published on phase
+     11's fixture (event only, C_thres -1: the normalized loss's norm over
+     the global batch; 2 x 15,048 pairs x 512 steps a rank), 4 steps:
+     steps/s, each rank's peak memory, the all_reduce's ms per step, the
+     epoch-end replication check; a torch.OutOfMemoryError as published
+     is printed as the result and the phase reruns with --remat_fixed 1.
 Then a `{"kernels": [...]}` line, the card line, and last the result line
 `{"ok": true, "device": {...}}`.
 """
@@ -2179,6 +2201,346 @@ def phase_position_grads():
     return res
 
 
+# ----------------------------------------------------------------------------
+# phases 22-23: data parallelism (enerf_torch/parallel/)
+
+DP_TIMEOUT_S = 600  # a collective that waits longer fails the rank
+DP_DEVICES = ["cuda:0", "cuda:0"]  # phase 23's two ranks, on one card on purpose
+
+
+class TimedAllReduce:
+    """Wraps parallel.mesh.all_reduce_grads: each call's synchronized
+    milliseconds (the flat gradient all_reduce and its write-back)."""
+
+    def __init__(self):
+        from enerf_torch.parallel import mesh as dp
+        self.mod, self.real, self.ms = dp, dp.all_reduce_grads, []
+
+    def __enter__(self):
+        import torch
+
+        def timed(params, mesh):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            self.real(params, mesh)
+            torch.cuda.synchronize()
+            self.ms.append((time.time() - t0) * 1e3)
+        self.mod.all_reduce_grads = timed
+        return self.ms
+
+    def __exit__(self, *exc):
+        self.mod.all_reduce_grads = self.real
+
+
+# Adam's first step moves an entry by u(g) = lr g / (|g| + eps): a relative
+# change rho of g changes it by at most lr rho / 4, so 5e-3 keeps the params
+# within 1e-5 at lr <= 8e-3
+DP_GRAD_CLEAR = 5e-3
+
+
+def param_diff(state_a, state_b):
+    """Two TrainStates after one step from the same params, each param's
+    .grad still the step's gradient.  Adam's first step moves an entry by
+    about lr times its gradient's sign, so the params alone cannot tell a
+    gradient's size: the gradients are compared by norm, leaf by leaf, and
+    the params wherever a's gradient is within DP_GRAD_CLEAR of b's,
+    relatively.  Returns, over every leaf: max |a - b| of all params and
+    of those entries, the worst leaf's ||ga - gb|| / ||gb||, the entries
+    with a gradient on either side, those of them left out, and those left
+    out that moved apart (by more than 1e-5); and each leaf's numbers."""
+    import torch
+    leaves = {}
+    for k, pa in state_a.params.items():
+        pb = state_b.params[k]
+        ga, gb = pa.grad, pb.grad
+        d = (pa.detach() - pb.detach()).abs()
+        clear = (ga - gb).abs() <= DP_GRAD_CLEAR * gb.abs()
+        nonzero = (ga != 0) | (gb != 0)
+        gn = float(torch.linalg.vector_norm(gb))
+        en = float(torch.linalg.vector_norm(ga - gb))
+        leaves[k] = dict(
+            numel=d.numel(), max_dparam=float(d.max()),
+            max_dparam_clear=float(torch.where(clear, d, 0.0).max()),
+            grad_rel=en / gn if gn else (0.0 if en == 0 else float("inf")),
+            nonzero=int(nonzero.sum()), unclear=int((nonzero & ~clear).sum()),
+            moved=int((nonzero & ~clear & (d > 1e-5)).sum()))
+    total = {k: sum(v[k] for v in leaves.values()) for k in ("nonzero", "unclear", "moved")}
+    worst = {k: max(v[k] for v in leaves.values())
+             for k in ("max_dparam", "max_dparam_clear", "grad_rel")}
+    return dict(worst, **total, leaves=leaves)
+
+
+def dp_compare(mesh, cfg, workspace):
+    """On each rank of `mesh`: the main path's trainer, its occupancy by
+    update_occupancy_sharded against the serial update with the same jitter,
+    then one data-parallel step on this rank's shard of one global batch
+    against the single-process step on the whole batch, with the same noise
+    (both drawn alike on every rank).  Returns the numbers and this rank's
+    trainer."""
+    import warnings
+    import torch
+    from enerf_torch.data.provider import make_providers
+    from enerf_torch.ops import fused_mlp
+    from enerf_torch.parallel import mesh as dp
+    from enerf_torch.render.occupancy import GRID_SIZE, update_occupancy, update_occupancy_sharded
+    from enerf_torch.train.state import TrainState
+    from enerf_torch.train.step import draw_noise, train_step_events
+    from enerf_torch.train.trainer import Trainer
+
+    dev = mesh.device
+    trainer = Trainer(cfg, workspace=workspace, mesh=mesh)
+    train, val = make_providers(cfg, device=dev)  # the global batch: every rank draws it alike
+    occ0, static = trainer.occupancy, trainer.static
+    g = torch.Generator(device=dev).manual_seed(7)
+    jitter = torch.rand(occ0.density_grid.shape[0], GRID_SIZE ** 3, 3, device=dev, generator=g)
+    kw = dict(density_scale=cfg.density_scale, density_thresh=cfg.density_thresh)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    occ = update_occupancy_sharded(trainer.state.params, static, occ0, mesh=mesh,
+                                   noise=jitter, **kw)
+    torch.cuda.synchronize()
+    t_sharded = time.time() - t0
+    t0 = time.time()
+    serial = update_occupancy(trainer.state.params, static, occ0, noise=jitter, **kw)
+    torch.cuda.synchronize()
+    t_serial = time.time() - t0
+    occ_equal = (torch.equal(occ.density_grid, serial.density_grid)
+                 and torch.equal(occ.occ_bitfield, serial.occ_bitfield))
+    trainer.occupancy = occ
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    batch = train.train_step_batch(g)
+    N = batch["rays_evs_o1"].shape[0]
+    noise = draw_noise(trainer.ss, N, g, dev)
+    single = TrainState({k: p.detach() for k, p in trainer.state.params.items()},
+                        cfg.lr, cfg.iters)
+    step = dp.make_sharded_train_step(trainer.ss, mesh)
+    # one backward summed in one order on each side (index_add_ without
+    # atomics), so that the two sides differ by the reduction alone
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # ops without a deterministic form
+            fused_mlp.fused_field_head.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with TimedAllReduce() as ar_ms:
+                sc = step(trainer.state, dp.shard_batch(batch, mesh), occ.occ_bitfield,
+                          noise=noise)
+            torch.cuda.synchronize()
+            t_step = time.time() - t0
+            k1 = fused_mlp.fused_field_head.launches
+            ref = train_step_events(single, batch, trainer.ss, occ.occ_bitfield, noise=noise)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    dp.assert_replicated(trainer.state, trainer.occupancy, mesh)
+    return trainer, val, dict(
+        rank=mesh.rank, world=mesh.world_size, backend=mesh.backend, pairs_global=N,
+        pairs_rank=N // mesh.world_size, C_thres=cfg.C_thres, loss=float(sc["loss"]),
+        loss_single=float(ref["loss"]), **param_diff(trainer.state, single),
+        k1_launches=k1, step_s=t_step, allreduce_ms=ar_ms[0],
+        occ_equal=occ_equal, occ_sharded_s=t_sharded, occ_serial_s=t_serial,
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+DP_GRAD_RTOL = 2e-2  # ||g_dp - g_1|| / ||g_1|| per leaf
+DP_UNCLEAR_SHARE = 5e-3  # of the entries with a gradient, those the params' check leaves out
+
+
+def dp_check(tag, r, param_tol):
+    """The comparison's verdict; raises if a number misses its tolerance."""
+    ok = (abs(r["loss"] - r["loss_single"]) <= 1e-4 * abs(r["loss_single"])
+          and r["max_dparam_clear"] <= param_tol and r["grad_rel"] <= DP_GRAD_RTOL
+          and r["nonzero"] > 0 and r["unclear"] <= DP_UNCLEAR_SHARE * r["nonzero"]
+          and r["occ_equal"] and r["k1_launches"] > 0)
+    if tag == "dp-nccl":
+        ok = ok and r["max_dparam"] <= param_tol
+    if not ok:
+        raise AssertionError(f"[{tag}] the data-parallel step disagrees: {r}")
+
+
+def phase_dp_nccl(workspace):
+    """Phase 22: one rank over NCCL on cuda:0, in this process: the main
+    path's data-parallel step against the plain step (NCCL over one rank
+    reduces nothing: max |dparam| <= 1e-6)."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from enerf_torch.parallel import mesh as dp, multihost
+
+    with tempfile.TemporaryDirectory(prefix="enerf_rendezvous_") as tmp:
+        multihost.initialize("file://" + os.path.join(tmp, "store"), world_size=1, rank=0,
+                             backend="nccl", timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+        try:
+            mesh = dp.make_mesh(devices=["cuda:0"])
+            _, _, r = dp_compare(mesh, smoke_config(workspace), workspace)
+        finally:
+            dist.destroy_process_group()
+    print(f"[dp-nccl] 1 rank over {r['backend']} on cuda:0, {r['pairs_global']} pairs: loss "
+          f"{r['loss']:.6f} vs the plain step's {r['loss_single']:.6f}; max |dparam| "
+          f"{r['max_dparam']:.3e} (tol 1e-6); gradients within {r['grad_rel']:.2e} of their "
+          f"norm (tol {DP_GRAD_RTOL:g}); K1 launches {r['k1_launches']} in the step; "
+          f"step {r['step_s']:.3f} s, gradient all_reduce {r['allreduce_ms']:.3f} ms; "
+          f"sharded occupancy update {'bit-equal' if r['occ_equal'] else 'DIFFERENT'} to the "
+          f"serial one ({r['occ_sharded_s']:.3f} / {r['occ_serial_s']:.3f} s)")
+    dp_check("dp-nccl", r, 1e-6)
+    return r
+
+
+def dp_rank_main_path(mesh, workspace, out_dir):
+    """Phase 23 (a) and (c) on one rank: dp_compare, then one validation view
+    through make_sharded_render against render_rays_march of the whole view
+    on rank 0."""
+    import numpy as np
+    import torch
+    from enerf_torch.data.rays import get_rays_full
+    from enerf_torch.ops import fused_mlp
+    from enerf_torch.render.march import render_rays_march
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as in this script's main()
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = smoke_config(workspace)
+    trainer, val, r = dp_compare(mesh, cfg, workspace)
+    # the normalized event loss, whose norm crosses the ranks
+    ws = os.path.join(workspace, "norm")
+    r["norm"] = dp_compare(mesh, smoke_config(ws, "--C_thres", "-1"), ws)[2]
+    v = val.val_views()[0]
+    fused_mlp.fused_field_head.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img, depth = trainer.render_view(v["pose"], v["intrinsics"], v["H"], v["W"])
+    torch.cuda.synchronize()
+    r.update(view_s=time.time() - t0, view_k1=fused_mlp.fused_field_head.launches,
+             view_shape=list(img.shape), view_finite=bool(np.isfinite(img).all()))
+    if mesh.rank == 0:
+        pose = torch.as_tensor(np.asarray(v["pose"]), dtype=torch.float32, device=mesh.device)
+        ro, rd = get_rays_full(pose, v["intrinsics"], v["H"], v["W"])
+        with torch.no_grad():
+            ref = render_rays_march(
+                trainer.state.ema_params, trainer.static, trainer.occupancy.occ_bitfield, ro, rd,
+                num_samples=max(2 * cfg.march_samples, 128), max_steps=trainer.ss.max_steps,
+                bg_color=1.0, min_near=cfg.min_near, density_scale=cfg.density_scale,
+                dt_gamma=cfg.dt_gamma)
+        r["view_err"] = max(
+            float(np.abs(img.reshape(-1) - ref["image"].reshape(-1).cpu().numpy()).max()),
+            float(np.abs(depth.reshape(-1) - ref["depth"].cpu().numpy()).max()))
+    with open(os.path.join(out_dir, f"main_rank{mesh.rank}.json"), "w") as f:
+        json.dump(r, f)
+
+
+def dp_rank_sparse(mesh, datadir, workspace, extra, steps, out_dir):
+    """Phase 23 (b) on one rank: spiral1_sparse_enerf as published (the
+    config's batch the global one), `steps` steps through Trainer.train."""
+    import numpy as np
+    import torch
+    from enerf_torch.cli import get_select_frames
+    from enerf_torch.data.provider import make_providers
+    from enerf_torch.parallel import mesh as dp
+    from enerf_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as in this script's main()
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = esim_config("spiral1_sparse/spiral1_sparse_enerf.txt", datadir, workspace,
+                      "--iters", str(steps), *extra)
+    trainer = Trainer(cfg, workspace=workspace, mesh=mesh)
+    train, _ = make_providers(cfg, get_select_frames(cfg), device=mesh.device,
+                              shards=mesh.world_size)
+    train.steps_per_epoch = steps
+    kernels = reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with TimedAllReduce() as ar_ms:
+        trainer.train(train, None, max_epoch=1)
+    torch.cuda.synchronize()
+    dp.assert_replicated(trainer.state, trainer.occupancy, mesh)
+    secs = trainer.epoch_seconds
+    r = dict(rank=mesh.rank, pairs_rank=train.batch_size_evs, C_thres=cfg.C_thres,
+             remat_fixed=cfg.remat_fixed, steps_s=steps / secs["steps"],
+             replication_check_s=secs.get("replication check"),
+             peak_gib=torch.cuda.max_memory_allocated(mesh.device) / 2**30,
+             allreduce_ms=ar_ms, losses=[aux["loss"] for _, aux in trainer.history],
+             launches=[k.launches for k in kernels], step=trainer.state.step)
+    if not (len(r["losses"]) == steps and np.isfinite(r["losses"]).all()):
+        raise AssertionError(f"spiral1_sparse_enerf losses: {r['losses']}")
+    with open(os.path.join(out_dir, f"sparse_rank{mesh.rank}.json"), "w") as f:
+        json.dump(r, f)
+
+
+def phase_dp_gloo(workspace, datadir):
+    """Phase 23: two ranks over gloo, both on cuda:0, started as the CLI's
+    --mesh_shape starts ranks (parallel.mesh.spawn); `datadir` is phase 11's
+    esim fixture."""
+    import datetime
+    import numpy as np
+    import torch
+    from enerf_torch.parallel import mesh as dp
+
+    timeout = datetime.timedelta(seconds=DP_TIMEOUT_S)
+    out_dir = os.path.join(workspace, "results")
+    shutil.rmtree(workspace, ignore_errors=True)
+    os.makedirs(out_dir)
+    devices = DP_DEVICES
+    t0 = time.time()
+    dp.spawn(dp_rank_main_path, devices, args=(workspace, out_dir), timeout=timeout)
+    ranks = [json.load(open(os.path.join(out_dir, f"main_rank{i}.json"))) for i in (0, 1)]
+    r = ranks[0]
+    for x in (r, r["norm"]):
+        print(f"[dp-gloo] (a) 2 ranks over {x['backend']} on cuda:0, C_thres {x['C_thres']}: "
+              f"{x['pairs_global']} global pairs, {x['pairs_rank']} a rank; loss "
+              f"{x['loss']:.6f} vs one process's {x['loss_single']:.6f} (rtol 1e-4); reduced "
+              f"gradients within {x['grad_rel']:.2e} of one process's by norm, the worst leaf "
+              f"(tol {DP_GRAD_RTOL:g}); max |dparam| {x['max_dparam_clear']:.3e} where the "
+              f"gradient is within {DP_GRAD_CLEAR:g} of one process's (tol 1e-5), "
+              f"{x['max_dparam']:.3e} over "
+              f"all; {x['unclear']} of {x['nonzero']} entries with a gradient left out (tol "
+              f"{DP_UNCLEAR_SHARE:g} of them), {x['moved']} of those moved apart; the ranks "
+              f"bit-equal; sharded occupancy "
+              f"{'bit-equal' if x['occ_equal'] else 'DIFFERENT'} to the serial update")
+    print(f"[dp-gloo] (a) {time.time() - t0:.1f} s with the start; K1 launches per rank "
+          f"{[x['k1_launches'] for x in ranks]}; step {[round(x['step_s'], 3) for x in ranks]} s, "
+          f"gradient all_reduce {[round(x['allreduce_ms'], 3) for x in ranks]} ms; peak "
+          f"{[round(x['peak_gib'], 2) for x in ranks]} GiB")
+    print(f"[dp-gloo] (c) one {r['view_shape']} view through make_sharded_render: "
+          f"{r['view_s']:.2f} s, K1 launches per rank {[x['view_k1'] for x in ranks]}; max "
+          f"|image, depth - render_rays_march of the whole view| {r['view_err']:.3e} (tol 1e-5)")
+    for x in ranks:
+        dp_check("dp-gloo", x, 1e-5)
+        dp_check("dp-gloo", x["norm"], 1e-5)
+    if not (r["view_err"] <= 1e-5 and r["view_finite"]):
+        raise AssertionError(f"[dp-gloo] the sharded view disagrees: {r['view_err']}")
+
+    steps, sparse = 4, None
+    for label, extra in (("as published", ()), ("with --remat_fixed 1", ("--remat_fixed", "1"))):
+        ws = os.path.join(workspace, "sparse")
+        t0 = time.time()
+        try:
+            dp.spawn(dp_rank_sparse, devices, args=(datadir, ws, extra, steps, out_dir),
+                     timeout=timeout)
+        except torch.multiprocessing.ProcessRaisedException as e:
+            oom = [ln for ln in str(e).splitlines() if "OutOfMemoryError" in ln]
+            if extra or not oom:
+                raise
+            print(f"[dp-gloo] (b) spiral1_sparse_enerf {label}, 2 ranks on one card: "
+                  f"{oom[-1].strip()[:300]} ({time.time() - t0:.1f} s)")
+            continue
+        sparse = [json.load(open(os.path.join(out_dir, f"sparse_rank{i}.json"))) for i in (0, 1)]
+        break
+    s = sparse[0]
+    ar = [float(np.mean(x["allreduce_ms"])) for x in sparse]
+    print(f"[dp-gloo] (b) spiral1_sparse_enerf {label} (C_thres {s['C_thres']}, the global norm), "
+          f"2 ranks x {s['pairs_rank']} pairs x 512 steps on one card: {steps} steps "
+          f"{s['steps_s']:.4f} steps/s (the first included); peak per rank "
+          f"{[round(x['peak_gib'], 2) for x in sparse]} GiB; gradient all_reduce "
+          f"{[round(a, 2) for a in ar]} ms a step (per rank; the first step included: "
+          f"{[[round(v, 2) for v in x['allreduce_ms']] for x in sparse]}); replication check "
+          f"{s['replication_check_s']:.2f} s, the ranks agree; losses "
+          f"{[round(v, 6) for v in s['losses']]}; K1 / K2 / K3 launches {s['launches']} "
+          f"({time.time() - t0:.1f} s with the start)")
+    if sparse[0]["losses"] != sparse[1]["losses"]:
+        raise AssertionError("the ranks logged different global losses")
+    return ranks, sparse
+
+
 def main():
     try:
         import torch
@@ -2252,6 +2614,13 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         dx = phase_position_grads()
+        gc.collect()
+        torch.cuda.empty_cache()
+        dp_nccl = phase_dp_nccl(os.path.join(REPO, "build", "chip_smoke_dp_nccl"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        dp_gloo, dp_sparse = phase_dp_gloo(os.path.join(REPO, "build", "chip_smoke_dp_gloo"),
+                                           datadir)
     except Exception:  # every phase's failure ends the run non-zero
         traceback.print_exc()
         print("[smoke] FAIL")
@@ -2271,7 +2640,10 @@ def main():
         "launches_viewer": k1_viewer, "launches_background": k1_bg,
         "launches_frequency_KE4": k1_grid_free["frequency"]["launches"],
         "launches_none_KE1": k1_grid_free["none"]["launches"], "launches_clip_march": k1_clip,
-        "position_grads": dx,
+        "position_grads": dx, "launches_dp_nccl_step": dp_nccl["k1_launches"],
+        "launches_dp_gloo_step_per_rank": [r["k1_launches"] for r in dp_gloo],
+        "launches_dp_gloo_view_per_rank": [r["view_k1"] for r in dp_gloo],
+        "launches_dp_spiral1_sparse_per_rank": [r["launches"][0] for r in dp_sparse],
     }, dict({
         "name": "block_table_grad", "route": "cuda",
         "source": "enerf_torch/csrc/block_table_grad.cu",

@@ -5,7 +5,9 @@ The port's own copy of enerf_tpu/config.py: the same fields, the same
 repo parses unchanged.  Two additions: `TPU_ONLY` names the options that
 select TPU variants or TPU dispatch machinery (accepted, ignored by the
 port), and `check_supported` raises on options whose code path the port
-does not have yet.
+does not have yet.  `mesh_shape` and `multihost` select the port's data
+parallelism over torch.distributed (enerf_torch/__main__.py,
+parallel/mesh.py).
 """
 
 import argparse
@@ -100,10 +102,11 @@ class Config:
     rand_pose: int = -1
 
     # TPU-specific additions (not in the reference)
-    mesh_shape: Optional[List[int]] = None  # devices per ('data',) axis; None = all
-    multihost: int = 0          # pod-slice run: jax.distributed.initialize +
-                                # mesh over ALL processes' devices; file
-                                # writes gated to process 0 (parallel/multihost.py)
+    mesh_shape: Optional[List[int]] = None  # data-parallel ranks on this host
+                                # (their product), one card each; None = one process
+    multihost: int = 0          # join the job torchrun started (one rank per
+                                # process, its batch the config's); file writes
+                                # by rank 0 (parallel/multihost.py)
     log_every: int = 100
     max_keep_ckpt: int = 2
     march_samples: int = 64     # live-sample buffer per ray (march path)
@@ -283,13 +286,16 @@ class Config:
 
 # TPU variants of one function or TPU dispatch machinery: configs keep
 # parsing, the port runs its single implementation and logs that it
-# ignored them (train/trainer.py).  position_grads selects the position
+# ignored them (train/trainer.py).  fuse_steps fuses K steps into one XLA
+# program (train/chunk.py); its CUDA counterpart would be a CUDA graph of K
+# steps, which the port's host-synced march cannot be captured in, so the
+# port dispatches one step at a time.  position_grads selects the position
 # gradients of JAX's segsum table backward (segsum_grad's compute_dx), a
 # TPU variant; the port's plain encoders give dL/dx whenever x needs a
 # gradient, as JAX's plain hash_encode / block_encode do, and the K2 route
 # gives zero, as JAX's block_encode_fast does.
-TPU_ONLY = ("fuse_steps", "mesh_shape", "multihost", "bf16_gather",
-            "segsum_grad", "mxu_grad", "mxu_rows", "coalesce_rounds", "position_grads")
+TPU_ONLY = ("fuse_steps", "bf16_gather", "segsum_grad", "mxu_grad", "mxu_rows",
+            "coalesce_rounds", "position_grads")
 
 
 def check_supported(cfg):

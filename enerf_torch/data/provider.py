@@ -39,6 +39,7 @@ from enerf_torch.data.poses import (
     nerf_matrix_to_ngp,
 )
 from enerf_torch.data.rays import get_event_rays, get_rays_full, get_rays_sampled
+from enerf_torch.parallel import multihost
 from enerf_torch.utils.png import read_png, resize_area, write_png
 
 
@@ -375,15 +376,26 @@ class FramesProvider:
             self._last_fi, self._last_inds_coarse = fi, rays["inds_coarse"]
         return batch
 
-    def update_error_map(self, per_ray_loss):
+    def error_map_cells(self):
+        """The last batch's error-map cells: (frame [N], coarse cell [N])."""
+        ic = self._last_inds_coarse
+        return self._last_fi.expand_as(ic), ic
+
+    def update_error_map(self, per_ray_loss, cells=None):
         """The error map's EMA at the last batch's coarse cells
-        (utils.py:625-632; JAX's _errmap_update_jit)."""
+        (utils.py:625-632; JAX's _errmap_update_jit).  A data-parallel
+        trainer hands in every rank's cells and losses, gathered in rank
+        order (`cells` = (frames, coarse cells)), and each rank's block is
+        applied in that order, so every rank's map stays the same."""
         if self.error_map is None:
             return
-        ic = self._last_inds_coarse
-        rows = self._last_fi.expand_as(ic)
-        old = self.error_map[rows, ic]
-        self.error_map.index_put_((rows, ic), 0.1 * old + 0.9 * per_ray_loss.detach())
+        rows, ic = cells if cells is not None else self.error_map_cells()
+        n = self._last_inds_coarse.shape[0]
+        loss = per_ray_loss.detach()
+        for s in range(0, ic.shape[0], n):
+            r, c = rows[s:s + n], ic[s:s + n]
+            old = self.error_map[r, c]
+            self.error_map.index_put_((r, c), 0.1 * old + 0.9 * loss[s:s + n])
 
     def val_views(self):
         poses = self.poses.cpu().numpy()
@@ -537,7 +549,10 @@ class EventProvider:
 
 def _maybe_write_transforms(cfg, data):
     """The workspace's transforms snapshot (the reference writes one on every
-    real dataset load, provider.py:484-496); it never stops training."""
+    real dataset load, provider.py:484-496), by rank 0 of a data-parallel
+    job; it never stops training."""
+    if not multihost.is_primary():
+        return
     try:
         write_transforms_json(os.path.join(cfg.outdir, cfg.expweek, cfg.expname), data)
     except (OSError, KeyError, ValueError) as e:
@@ -562,7 +577,7 @@ def _load_stereo_dataset(cfg, select_frames):
     return eds.load_eds_dataset(cfg.datadir, **kw)
 
 
-def make_providers(cfg, select_frames=None, device=None):
+def make_providers(cfg, select_frames=None, device=None, shards=1):
     """(train_provider, val_provider) from cfg (enerf_tpu's make_providers):
     mode=synthetic runs the in-process event simulator, mode=esim, tumvie
     and eds read cfg.datadir.  With events=0 the train provider is a
@@ -572,8 +587,26 @@ def make_providers(cfg, select_frames=None, device=None):
     tumvie / eds the events are grouped per train image, and with
     eval_stereo_views the val provider carries the event camera's views at
     the val images' times.  `device=None` is the CUDA device
-    (backend.resolve_device)."""
+    (backend.resolve_device).  `shards`: the config's batch is the global
+    batch of that many data-parallel ranks (--mesh_shape), so the train
+    provider samples batch_size_evs / shards event pairs (and their
+    no-event pairs) and num_rays / shards frame rays; a split that is not
+    even raises."""
     device = resolve_device(device)
+    batch_size_evs, num_rays = cfg.batch_size_evs, cfg.num_rays
+    if shards > 1:
+        split = {}  # what the train provider samples
+        if cfg.events:
+            split["batch_size_evs"] = batch_size_evs
+            if cfg.negative_event_sampling:
+                split["batch_size_evs // 2 (the no-event pairs)"] = batch_size_evs // 2
+        if not (cfg.events and cfg.event_only):
+            split["num_rays"] = num_rays
+        uneven = [f"{k} = {v}" for k, v in split.items() if v % shards]
+        if uneven:
+            raise ValueError(f"the global batch does not split over {shards} ranks: "
+                             + ", ".join(uneven))
+        batch_size_evs, num_rays = batch_size_evs // shards, num_rays // shards
     if select_frames is None:
         select_frames = {"train_idxs": cfg.train_idxs, "val_idxs": cfg.val_idxs}
     ev_kw, stereo = {}, None
@@ -628,17 +661,17 @@ def make_providers(cfg, select_frames=None, device=None):
     val = FramesProvider(va_images, va_poses, data["intrinsics"], num_rays=cfg.num_rays,
                          stereo_views=stereo, device=device)
     if not cfg.events:
-        train = FramesProvider(train_images, poses, data["intrinsics"], num_rays=cfg.num_rays,
+        train = FramesProvider(train_images, poses, data["intrinsics"], num_rays=num_rays,
                                error_map=bool(cfg.error_map), rand_pose=cfg.rand_pose,
                                rand_radius=cfg.radius, device=device)
     else:
         train = EventProvider(
             events, hf_ts, hf_poses, data["intrinsics"], data.get("H_ev", data["H"]),
-            data.get("W_ev", data["W"]), batch_size_evs=cfg.batch_size_evs,
+            data.get("W_ev", data["W"]), batch_size_evs=batch_size_evs,
             accumulate_evs=bool(cfg.accumulate_evs), acc_max_num_evs=cfg.acc_max_num_evs,
             precompute_evs_poses=bool(cfg.precompute_evs_poses),
             negative_event_sampling=bool(cfg.negative_event_sampling),
             frames=None if cfg.event_only else train_images,
             frame_poses=None if cfg.event_only else poses,
-            num_rays=cfg.num_rays, device=device, **ev_kw)
+            num_rays=num_rays, device=device, **ev_kw)
     return train, val

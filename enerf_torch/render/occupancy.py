@@ -16,12 +16,17 @@ gathered block-grid rows to ~0.5 GB per chunk at 16 levels.
 `iter_density` is a Python int, so choosing the branch costs no device sync.
 Random draws come from a torch.Generator; tests inject the cell jitter
 (`noise`).
+
+`update_occupancy_sharded` is the data-parallel update: each rank queries
+its share of the cells and one all_reduce merges the value and count
+planes; its full phase equals the serial update bit for bit.
 """
 
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from enerf_torch.models.field import field_density
 
@@ -76,6 +81,29 @@ def _linear_coords(idx):
     return torch.stack([idx // (H * H), (idx // H) % H, idx % H], dim=-1)
 
 
+def _resampled_cells(occ, c, n, generator):
+    """n uniform random cells of cascade c and n occupied ones, uniform with
+    replacement by inverse CDF (reference renderer.py:524-526)."""
+    H3 = GRID_SIZE ** 3
+    dev = occ.density_grid.device
+    rand_idx = torch.randint(0, H3, (n,), device=dev, generator=generator)
+    cdf = torch.cumsum((occ.density_grid[c] > 0.0).float(), 0)
+    u = torch.rand(n, device=dev, generator=generator) * cdf[-1].clamp(min=1.0)
+    occ_idx = torch.searchsorted(cdf, u, right=True).clamp(0, H3 - 1)
+    return torch.cat([rand_idx, occ_idx])
+
+
+def _query(params, static, cells, u3, c, n_chunks, density_scale):
+    """The scaled densities at the centres of cascade c's `cells`, jittered
+    by u3 [n, 3] in U[0, 1), in n_chunks field queries."""
+    xyz, half = _cell_centers(_linear_coords(cells), c, static.bound)
+    xyz = xyz + (u3 * 2.0 - 1.0) * half
+    return torch.cat([
+        field_density(params, static, part)[0]
+        for part in xyz.chunk(n_chunks)
+    ]) * (density_scale * DENSITY_SCALE_STEP)
+
+
 @torch.no_grad()
 def update_occupancy(params, static, occ, generator=None, *, density_scale=1.0,
                      density_thresh=0.01, decay=0.95, noise=None):
@@ -90,28 +118,61 @@ def update_occupancy(params, static, occ, generator=None, *, density_scale=1.0,
     cas = occ.density_grid.shape[0]
     full = occ.iter_density < 16
     tmp = torch.full_like(occ.density_grid, -1.0)
-    n_chunks = 64 if full else 16
     for c in range(cas):
-        if full:
-            cells = torch.arange(H ** 3, device=dev)
-        else:
-            N = H ** 3 // 4
-            rand_idx = torch.randint(0, H ** 3, (N,), device=dev, generator=generator)
-            # uniform-with-replacement over occupied cells by inverse CDF
-            # (reference renderer.py:524-526)
-            cdf = torch.cumsum((occ.density_grid[c] > 0.0).float(), 0)
-            u = torch.rand(N, device=dev, generator=generator) * cdf[-1].clamp(min=1.0)
-            occ_idx = torch.searchsorted(cdf, u, right=True).clamp(0, H ** 3 - 1)
-            cells = torch.cat([rand_idx, occ_idx])
+        cells = (torch.arange(H ** 3, device=dev) if full else
+                 _resampled_cells(occ, c, H ** 3 // 4, generator))
         u3 = (noise[c].to(dev) if noise is not None else
               torch.rand(cells.shape[0], 3, device=dev, generator=generator))
-        xyz, half = _cell_centers(_linear_coords(cells), c, static.bound)
-        xyz = xyz + (u3 * 2.0 - 1.0) * half
-        sig = torch.cat([
-            field_density(params, static, part)[0]
-            for part in xyz.chunk(n_chunks)
-        ]) * (density_scale * DENSITY_SCALE_STEP)
-        tmp[c, cells] = sig
+        tmp[c, cells] = _query(params, static, cells, u3, c, 64 if full else 16, density_scale)
+    return _finish_update(occ, tmp, density_thresh, decay)
+
+
+@torch.no_grad()
+def update_occupancy_sharded(params, static, occ, generator=None, rank_generator=None, *,
+                             mesh, density_scale=1.0, density_thresh=0.01, decay=0.95,
+                             noise=None):
+    """The data-parallel occupancy update (enerf_tpu's update_occupancy_sharded):
+    each of the mesh's ranks queries its share of the cells, and one
+    all_reduce SUM of the value and count planes merges them (a cell queried
+    n times gets the mean of its n queries).
+
+    The full phase (the first 16 updates) splits the serial update's 64
+    query chunks over the ranks, with the serial update's jitter: `noise`
+    [CAS, H^3, 3], or drawn from the shared `generator` as the serial update
+    draws it.  Each query then sees the serial update's inputs, so the result
+    equals update_occupancy's bit for bit (a mesh that does not divide 64
+    queries one chunk per rank).  The resampling phase draws each rank's
+    H^3 / 4 / world random and occupied cells and their jitter from
+    `rank_generator`.  `mesh` needs rank, world_size and group."""
+    H = GRID_SIZE
+    dev = occ.density_grid.device
+    cas = occ.density_grid.shape[0]
+    W, r = mesh.world_size, mesh.rank
+    full = occ.iter_density < 16
+    if full and noise is None and generator is None:  # the global RNG differs per rank
+        raise ValueError("the full phase draws its jitter from the shared generator: "
+                         "pass `generator` (or `noise`)")
+    if H ** 3 % (4 * W):
+        raise ValueError(f"{W} ranks do not divide the {H}^3 / 4 resampled cells")
+    n_chunks = 64 if 64 % W == 0 else W
+    planes = torch.zeros(2, cas, H ** 3, device=dev)  # value, count
+    for c in range(cas):
+        if full:
+            span = H ** 3 // W
+            cells = torch.arange(r * span, (r + 1) * span, device=dev)
+            u3 = (noise[c].to(dev) if noise is not None else
+                  torch.rand(H ** 3, 3, device=dev, generator=generator))[r * span:(r + 1) * span]
+            parts = n_chunks // W
+        else:
+            cells = _resampled_cells(occ, c, H ** 3 // 4 // W, rank_generator)
+            u3 = torch.rand(cells.shape[0], 3, device=dev, generator=rank_generator)
+            parts = max(16 // W, 1)
+        sig = _query(params, static, cells, u3, c, parts, density_scale)
+        planes[0, c].index_add_(0, cells, sig)
+        planes[1, c].index_add_(0, cells, torch.ones_like(sig))
+    dist.all_reduce(planes, group=mesh.group)
+    val, cnt = planes
+    tmp = torch.where(cnt > 0.0, val / cnt.clamp(min=1.0), -1.0)
     return _finish_update(occ, tmp, density_thresh, decay)
 
 

@@ -28,6 +28,7 @@ import threading
 import numpy as np
 import torch
 
+from enerf_torch.parallel import multihost
 from enerf_torch.render.occupancy import OccupancyState
 
 S = "['state']"
@@ -144,6 +145,11 @@ class CheckpointManager:
     thread (the device->host copy happens on the caller's thread, so the
     next step may update the state in place); `wait()` drains them and
     re-raises the first failure.
+
+    In a data-parallel job every rank holds the same state and only rank 0
+    writes; each save ends, on every rank, with rank 0's write drained and
+    a barrier, so no rank reads a checkpoint before it is whole and every
+    rank resolves the same file on resume.
     """
 
     def __init__(self, ckpt_dir, name="ngp", max_keep=2, async_save=False):
@@ -172,7 +178,17 @@ class CheckpointManager:
         return sorted((int(m.group(1)), os.path.join(self.ckpt_dir, m.group(0)))
                       for m in found if m)
 
-    def _save(self, path, arrays, meta, rotate):
+    def _save(self, path, snapshot, meta, rotate):
+        """Write snapshot() (rank 0 only); in a job of several ranks, drain
+        the write and wait for every rank."""
+        if multihost.is_primary():
+            self._write(path, snapshot(), meta, rotate)
+        if multihost.world_size() > 1:
+            self.wait()
+            multihost.all_processes_barrier(f"checkpoint {os.path.basename(path)}")
+        return path + ".npz"
+
+    def _write(self, path, arrays, meta, rotate):
         def work():
             try:
                 _write_arrays(path, arrays, meta)
@@ -197,21 +213,23 @@ class CheckpointManager:
             th.start()
         else:
             work()
-        return path + ".npz"
 
     def save(self, state, occupancy, epoch, stats=None):
         path = os.path.join(self.ckpt_dir, f"{self.name}_ep{epoch:04d}")
-        return self._save(path, _snapshot(state, occupancy),
+        return self._save(path, lambda: _snapshot(state, occupancy),
                           _meta(state, epoch, stats), rotate=True)
 
     def save_best(self, state, occupancy, epoch, stats=None):
         """Best-by-metric checkpoint with the EMA weights as its params
         (utils.py:1337-1345)."""
-        arrays = _snapshot(state, occupancy)
-        for k in state.params:
-            arrays[f"{S}/.params/['{k}']"] = arrays[f"{S}/.ema_params/['{k}']"]
+        def snapshot():
+            arrays = _snapshot(state, occupancy)
+            for k in state.params:
+                arrays[f"{S}/.params/['{k}']"] = arrays[f"{S}/.ema_params/['{k}']"]
+            return arrays
+
         path = os.path.join(self.ckpt_dir, f"{self.name}_best")
-        return self._save(path, arrays, _meta(state, epoch, stats), rotate=False)
+        return self._save(path, snapshot, _meta(state, epoch, stats), rotate=False)
 
     def latest(self):
         self.wait()

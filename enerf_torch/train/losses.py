@@ -8,6 +8,7 @@ comes with the frame term.
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 LUMA_ESIM = (0.299, 0.587, 0.114)  # BT.601, rpg_esim convention
 LUMA_709 = (0.2126, 0.7152, 0.0722)
@@ -36,18 +37,46 @@ def log_intensity(image01, use_luma, linlog=True, log_thres=1e-5):
     return torch.log(x.clamp(min=log_thres))
 
 
-def event_loss(delta_linlog, pol, C_thres, event_only=True):
+class _SumOverRanks(torch.autograd.Function):
+    """all_reduce SUM whose backward is the all_reduce SUM of the gradient:
+    every rank's loss depends on every rank's share of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def event_loss(delta_linlog, pol, C_thres, event_only=True, group=None):
     """Core event supervision (utils.py:517-528).
 
     delta_linlog: [B, N, 1 or 3]; pol: [B, N, 1]; C_thres == -1 selects the
-    normalized loss.
+    normalized loss, whose norms run over the N pairs of the batch.  With a
+    process `group` the N pairs are this rank's shard of the global batch:
+    the norms are taken over the global batch (the sums of squares summed
+    over the ranks, in the forward and the backward), and the returned mean
+    is this rank's, so the ranks' mean of it is the global loss.
     """
     if C_thres != -1:
         return ((delta_linlog - pol * C_thres) ** 2).mean()
     EPS = 1e-9
     w = 20.0 if event_only else 400.0
-    dn = delta_linlog / (torch.linalg.vector_norm(delta_linlog, dim=1, keepdim=True) + EPS)
-    pn = pol / (torch.linalg.vector_norm(pol, dim=1, keepdim=True) + EPS)
+    if group is None:
+        dn = delta_linlog / (torch.linalg.vector_norm(delta_linlog, dim=1, keepdim=True) + EPS)
+        pn = pol / (torch.linalg.vector_norm(pol, dim=1, keepdim=True) + EPS)
+    else:
+        d2 = _SumOverRanks.apply((delta_linlog ** 2).sum(dim=1, keepdim=True), group)
+        p2 = _SumOverRanks.apply((pol ** 2).sum(dim=1, keepdim=True), group)
+        dn = delta_linlog / (torch.sqrt(d2) + EPS)
+        pn = pol / (torch.sqrt(p2) + EPS)
     return w * ((dn - pn) ** 2).mean()
 
 

@@ -168,7 +168,7 @@ def draw_noise(ss, n_rays, generator, device, n_no_ev=0, n_frames=0, n_clip=0):
     return noise
 
 
-def _uses_no_ev(ss, batch):
+def uses_no_ev(ss, batch):
     return ss.negative_event_sampling and "rays_no_evs_o1" in batch
 
 
@@ -201,10 +201,14 @@ def frames_loss_fn(params, ss, batch, noise, occ=None):
     return loss, {"loss_frames": loss, "per_ray_loss": per_ray}
 
 
-def event_loss_fn(params, ss, batch, noise, occ):
+def event_loss_fn(params, ss, batch, noise, occ, group=None):
     """Event photometric loss on paired renders (utils.py:482-573);
     occ: the [CAS, H^3] occupancy bitfield the march renders go through
-    (None on the fixed-step path)."""
+    (None on the fixed-step path).  With a process `group` the batch is this
+    rank's shard: the normalized event loss takes its norms over the global
+    batch (losses.event_loss), and the implC_* medians, which would need
+    the global batch sorted, are left out.  The other terms are means, so
+    the ranks' mean of them is the global batch's."""
     N = batch["rays_evs_o1"].shape[0]
     # one random bg shared by both renders of the pair (utils.py:487)
     bg = noise["bg"].expand(N, ss.out_dim_color)
@@ -214,11 +218,12 @@ def event_loss_fn(params, ss, batch, noise, occ):
     delta = ll2 - ll1
     pol = batch["pols"][:, None]
     loss_evs = losses.event_loss(delta[None], pol[None], ss.C_thres,
-                                 event_only=ss.event_only)
+                                 event_only=ss.event_only, group=group)
     loss = loss_evs
     aux = {"loss_evs": loss_evs}
-    aux.update((f"implC_{k}", v) for k, v in
-               losses.estimate_implicit_C(pol, delta.detach()).items())
+    if group is None:
+        aux.update((f"implC_{k}", v) for k, v in
+                   losses.estimate_implicit_C(pol, delta.detach()).items())
     aux["ws_mean"] = out1["weights_sum"].detach().float().mean()
 
     if ss.w_distortion > 0.0 and "weights" in out1:  # march renders only
@@ -236,7 +241,7 @@ def event_loss_fn(params, ss, batch, noise, occ):
         lf, _ = frames_loss_fn(params, ss, batch, noise, occ)
         loss = loss + ss.weight_loss_rgb * lf
         aux["loss_frames"] = lf
-    if _uses_no_ev(ss, batch):
+    if uses_no_ev(ss, batch):
         M = batch["rays_no_evs_o1"].shape[0]
         bg2 = noise["bg_no_ev"].expand(M, ss.out_dim_color)
         no1, no2 = _render_pair(params, ss, batch, "no_evs", bg2, noise, "_no_ev", occ)
@@ -248,15 +253,27 @@ def event_loss_fn(params, ss, batch, noise, occ):
     return loss, aux
 
 
+def step_noise(ss, batch, generator, mode="events", scale=1):
+    """draw_noise sized for a step on `batch`: in events mode its pairs, its
+    no-event rays (when the step uses them) and its frame rays (unless
+    event-only); in frames mode its frame rays.  Every count is multiplied
+    by `scale`: the data-parallel step draws the global batch's noise from
+    one rank's shard."""
+    if mode == "frames":
+        return draw_noise(ss, 0, generator, batch["rays_o"].device,
+                          n_frames=scale * batch["rays_o"].shape[0])
+    n_no_ev = batch["rays_no_evs_o1"].shape[0] if uses_no_ev(ss, batch) else 0
+    n_frames = 0 if ss.event_only else batch["rays_o"].shape[0]
+    return draw_noise(ss, scale * batch["rays_evs_o1"].shape[0], generator,
+                      batch["rays_evs_o1"].device, scale * n_no_ev, scale * n_frames)
+
+
 def train_step_events(state, batch, ss, occ, noise=None, generator=None):
     """One event step: loss, backward, Adam + EMA on `state` (in place).
     Returns the detached loss terms; the gradients stay in state.params[k].grad
     until the next step."""
     if noise is None:
-        n_no_ev = batch["rays_no_evs_o1"].shape[0] if _uses_no_ev(ss, batch) else 0
-        n_frames = 0 if ss.event_only else batch["rays_o"].shape[0]
-        noise = draw_noise(ss, batch["rays_evs_o1"].shape[0], generator,
-                           batch["rays_evs_o1"].device, n_no_ev, n_frames)
+        noise = step_noise(ss, batch, generator)
     state.zero_grad()
     loss, aux = event_loss_fn(state.params, ss, batch, noise, occ)
     loss.backward()
@@ -271,8 +288,7 @@ def train_step_frames(state, batch, ss, occ, noise=None, generator=None):
     on `state` (in place).  Returns the detached loss, loss_frames and
     per_ray_loss [N] (the error map's update)."""
     if noise is None:
-        noise = draw_noise(ss, 0, generator, batch["rays_o"].device,
-                           n_frames=batch["rays_o"].shape[0])
+        noise = step_noise(ss, batch, generator, mode="frames")
     state.zero_grad()
     loss, aux = frames_loss_fn(state.params, ss, batch, noise, occ)
     loss.backward()

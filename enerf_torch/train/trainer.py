@@ -22,6 +22,16 @@ Counterpart of enerf_tpu/train/trainer.py (reference nerf/utils.py:289-1416):
     ckpt_interval epochs, evaluation every eval_interval epochs, the
     best-by-metric checkpoint with the EMA weights, the eval_log JSON line
     and the divergence guard;
+  - data parallelism (`mesh`, parallel/mesh.py; the JAX trainer's mesh
+    paths): each rank a process with a full replicated state and its shard
+    of the batch; the step through `make_sharded_train_step`, the
+    occupancy update through `update_occupancy_sharded`, the eval renders
+    through `shard_rays`, the error map fed every rank's cells and losses
+    in rank order; a shared generator (alike on every rank: the occupancy
+    update's full phase, the step's noise) and a per-rank one (the batch,
+    the occupancy resampling); the ranks' state checked bit-equal after
+    every epoch; rank 0 alone writes (log, args, checkpoints, diagnostics,
+    profile, images, mesh);
   - `evaluate` (PSNR, SSIM, LPIPS alex / vgg on the trainer's device and,
     for event-only training, the affine (a, b) log-intensity correction
     solved over all val images; the stereo rigs' event camera views,
@@ -45,8 +55,13 @@ from enerf_torch.backend import resolve_device
 from enerf_torch.config import TPU_ONLY, check_supported
 from enerf_torch.data.rays import get_rays_full
 from enerf_torch.models.field import FieldStatic, field_density, init_field_params
+from enerf_torch.parallel import mesh as dp
+from enerf_torch.parallel import multihost
+from enerf_torch.parallel.multihost import gather_rows
 from enerf_torch.render.march import pack_bitfield, render_rays_infer
-from enerf_torch.render.occupancy import init_occupancy, mark_untrained_grid, update_occupancy
+from enerf_torch.render.occupancy import (
+    init_occupancy, mark_untrained_grid, update_occupancy, update_occupancy_sharded,
+)
 from enerf_torch.render.renderer import render_rays_staged
 from enerf_torch.train import metrics as M
 from enerf_torch.train.checkpoints import CheckpointManager, load_checkpoint
@@ -67,11 +82,19 @@ def _to8(img):
 
 
 class Trainer:
-    def __init__(self, cfg, device=None, workspace=None, use_checkpoint=None, snapshot=True):
+    def __init__(self, cfg, device=None, workspace=None, use_checkpoint=None, snapshot=True,
+                 mesh=None):
         # snapshot=False: a read-only use of a trained workspace (the render
-        # tool) keeps its args.json as training wrote it
-        self.device = resolve_device(device)
+        # tool) keeps its args.json as training wrote it.  mesh: this rank's
+        # parallel.mesh.Mesh (its device is the trainer's), None for one process
+        self.mesh = mesh
+        self.primary = multihost.is_primary()  # rank 0 writes the files
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.cfg = check_supported(cfg)
+        if mesh is not None and cfg.rand_pose >= 0:
+            raise NotImplementedError(
+                "--rand_pose with a data-parallel mesh: the CLIP step scores one whole "
+                "image, which the data-parallel step does not split; run it on one process")
         # reference main_nerf.py:46-52: --ff/--tcnn force half precision;
         # here they select the block-packed encoder + bf16 compute, and
         # --ff with the march (-O) selects the fused head (kernel K1);
@@ -128,12 +151,19 @@ class Trainer:
         self.state = TrainState(params, cfg.lr, cfg.iters)
         # the occupancy grid exists on the march path only (cuda_ray)
         self.occupancy = init_occupancy(cfg.bound, self.device) if cfg.cuda_ray else None
+        # alike on every rank; the batch draws from rank_generator, which is
+        # the same generator on one process
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        self.rank_generator = self.generator
+        if mesh is not None:
+            seed = int(np.random.SeedSequence([cfg.seed + 1, mesh.rank]).generate_state(1)[0])
+            self.rank_generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._sharded_steps = {}  # warm phase -> make_sharded_train_step
 
         self.workspace = workspace or os.path.join(cfg.outdir, cfg.expweek, cfg.expname)
         os.makedirs(self.workspace, exist_ok=True)
         self.log_path = os.path.join(self.workspace, "log.txt")
-        if snapshot:
+        if snapshot and self.primary:
             with open(os.path.join(self.workspace, "args.json"), "w") as f:
                 json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
         self.ckpt = CheckpointManager(os.path.join(self.workspace, "checkpoints"),
@@ -154,6 +184,9 @@ class Trainer:
         self._guard_strikes = 0
         self.log(f"[port] device {self.device}; ignoring TPU-only options: "
                  + ", ".join(f"{k}={getattr(cfg, k)}" for k in TPU_ONLY))
+        if mesh is not None:
+            self.log(f"[mesh] {mesh.world_size} ranks over {mesh.backend}; rank 0 on "
+                     f"{mesh.device}")
 
         if use_checkpoint and use_checkpoint != "scratch":
             path = self.ckpt.resolve(use_checkpoint)
@@ -169,8 +202,14 @@ class Trainer:
                         self.stats[k] = list(st[k])
                 self.best_metric = float(st.get("best_metric", -np.inf))
                 self.log(f"[ckpt] resumed from {path} at epoch {self.epoch}")
+        if mesh is not None:
+            dp.replicate(self.state, self.occupancy, mesh)
+            self.log(f"[mesh] state replicated from rank 0 at step {self.state.step}; "
+                     "the ranks agree")
 
     def log(self, *msg):
+        if not self.primary:
+            return
         line = " ".join(str(m) for m in msg)
         print(line, flush=True)
         with open(self.log_path, "a") as f:
@@ -182,7 +221,8 @@ class Trainer:
         steps_per_epoch = getattr(provider, "steps_per_epoch", 100)
         t_start, start_step = time.time(), global_step
         t0 = self._clock()
-        self.diagnostics = dump_run_diagnostics(self.workspace, provider)
+        if self.primary:
+            self.diagnostics = dump_run_diagnostics(self.workspace, provider)
         self.diagnostics_seconds = self._clock() - t0
         for p in self.diagnostics:
             self.log(f"[diag] {p}")
@@ -204,7 +244,7 @@ class Trainer:
             self.history.append((step, aux))
             return loss
 
-        prof = {"session": None, "until": None, "done": cfg.profile <= 0}
+        prof = {"session": None, "until": None, "done": cfg.profile <= 0 or not self.primary}
         prof_dir = os.path.join(self.workspace, "profile")
 
         def maybe_profile(step, end=False):
@@ -243,6 +283,9 @@ class Trainer:
                 if global_step % cfg.log_every == 0:
                     epoch_losses.append(log_aux(aux, global_step))
             self.epoch_seconds["steps"] = self._clock() - t_steps
+            if self.mesh is not None:
+                timed("replication check", dp.assert_replicated, self.state, self.occupancy,
+                      self.mesh)
 
             if epoch_losses:
                 self.stats["loss"].append(float(np.mean(epoch_losses)))
@@ -280,11 +323,17 @@ class Trainer:
         cfg, step = self.cfg, self.state.step
         freeze = cfg.occ_freeze_after > 0 and step >= cfg.occ_freeze_after
         if self.occupancy is not None and step % 16 == 0 and not freeze:
-            self.occupancy = update_occupancy(
-                self.state.params, self.static, self.occupancy, self.generator,
-                density_scale=cfg.density_scale, density_thresh=cfg.density_thresh)
-        batch = provider.train_step_batch(self.generator)
-        ss = warm_statics(self.ss) if step < cfg.march_warmup else self.ss
+            kw = dict(density_scale=cfg.density_scale, density_thresh=cfg.density_thresh)
+            if self.mesh is None:
+                self.occupancy = update_occupancy(
+                    self.state.params, self.static, self.occupancy, self.generator, **kw)
+            else:
+                self.occupancy = update_occupancy_sharded(
+                    self.state.params, self.static, self.occupancy, self.generator,
+                    self.rank_generator, mesh=self.mesh, **kw)
+        batch = provider.train_step_batch(self.rank_generator)
+        warm = step < cfg.march_warmup
+        ss = warm_statics(self.ss) if warm else self.ss
         occ = self.occupancy.occ_bitfield if self.occupancy is not None else None
         if "rand_pose_side" in batch:  # no error-map update on this batch
             if self.clip_guidance is None:  # JAX asserts (trainer.py:250)
@@ -293,10 +342,20 @@ class Trainer:
             side = batch.pop("rand_pose_side")
             return train_step_clip(self.state, batch, ss, occ, self.clip_guidance.text_feat,
                                    side, generator=self.generator)
-        step_fn = train_step_events if cfg.events else train_step_frames
-        aux = step_fn(self.state, batch, ss, occ, generator=self.generator)
-        if cfg.error_map and hasattr(provider, "update_error_map"):
-            provider.update_error_map(aux["per_ray_loss"])
+        errmap = cfg.error_map and hasattr(provider, "update_error_map")
+        if self.mesh is None:
+            step_fn = train_step_events if cfg.events else train_step_frames
+            aux = step_fn(self.state, batch, ss, occ, generator=self.generator)
+            if errmap:
+                provider.update_error_map(aux["per_ray_loss"])
+            return aux
+        if warm not in self._sharded_steps:
+            self._sharded_steps[warm] = dp.make_sharded_train_step(
+                ss, self.mesh, "events" if cfg.events else "frames")
+        aux = self._sharded_steps[warm](self.state, batch, occ, generator=self.generator)
+        if errmap:  # every rank's cells and per-ray losses, in rank order
+            cells = [gather_rows(x, self.mesh.group) for x in provider.error_map_cells()]
+            provider.update_error_map(aux["per_ray_loss"], cells)
         return aux
 
     def _clock(self):
@@ -311,7 +370,7 @@ class Trainer:
         least guard_psnr_drop dB below the best corrected PSNR or, for
         event-only training, with an affine gain a < guard_affine_a."""
         cfg = self.cfg
-        if cfg.eval_log:
+        if cfg.eval_log and self.primary:
             rec = {"ts": time.time(), "workspace": self.workspace,
                    "epoch": self.epoch, "step": int(global_step)}
             rec.update({k: (float(v) if v is not None and np.ndim(v) == 0 else v)
@@ -338,18 +397,32 @@ class Trainer:
         """Full-image render with the EMA weights -> (image [H, W, C],
         depth [H, W]) numpy, in chunks of max_ray_batch rays: through the
         alive-ray inference renderer on the march path, else the fixed-step
-        renderer without jitter."""
+        renderer without jitter.  Under a mesh every rank renders its share
+        of the rays (the march path through make_sharded_render, as the JAX
+        trainer does) and every rank gets the whole image."""
         params = self.state.ema_params
         pose = torch.as_tensor(np.asarray(pose), dtype=torch.float32, device=self.device)
         ro, rd = get_rays_full(pose, intrinsics, H, W)
         C = self.static.out_dim_color
+        cfg, out = self.cfg, None
         if self.occupancy is None:
-            cfg = self.cfg
-            out = render_rays_staged(
-                params, self.static, ro, rd, max_ray_batch=cfg.max_ray_batch,
-                num_steps=cfg.num_steps, upsample_steps=cfg.upsample_steps, bg_color=1.0,
-                perturb=False, train=False, min_near=cfg.min_near,
-                density_scale=cfg.density_scale)
+            def render(o, d):
+                return render_rays_staged(
+                    params, self.static, o, d, max_ray_batch=cfg.max_ray_batch,
+                    num_steps=cfg.num_steps, upsample_steps=cfg.upsample_steps, bg_color=1.0,
+                    perturb=False, train=False, min_near=cfg.min_near,
+                    density_scale=cfg.density_scale)
+
+            out = render(ro, rd) if self.mesh is None else dp.shard_rays(render, self.mesh, ro, rd)
+        elif self.mesh is not None:
+            # the JAX trainer's eval depth: a live-sample buffer of twice the
+            # training one, at least 128
+            out = dp.make_sharded_render(
+                self.static, self.mesh, num_samples=max(2 * cfg.march_samples, 128),
+                max_steps=self.ss.max_steps, min_near=cfg.min_near,
+                density_scale=cfg.density_scale, dt_gamma=cfg.dt_gamma,
+            )(params, self.occupancy.occ_bitfield, ro, rd)
+        if out is not None:
             return (out["image"].reshape(H, W, C).cpu().numpy(),
                     out["depth"].reshape(H, W).cpu().numpy())
         packed = pack_bitfield(self.occupancy.occ_bitfield)
@@ -430,7 +503,7 @@ class Trainer:
             results.update(self.affine_corrected([preds[i] for i in have_gt],
                                                  [gts[i] for i in have_gt]))
 
-        if save:
+        if save and self.primary:
             vdir = os.path.join(self.workspace, "validation")
             for sub in ("prediction", "depth", "gt"):
                 os.makedirs(os.path.join(vdir, sub), exist_ok=True)
@@ -457,6 +530,8 @@ class Trainer:
         os.makedirs(evdir, exist_ok=True)
         for j, v in enumerate(views):
             img, depth = self.render_view(v["pose"], v["intrinsics"], v["H"], v["W"])
+            if not self.primary:
+                continue
             name = os.path.join(evdir, f"ep{self.epoch:04d}_{j:04d}")
             np.save(name + "_raw.npy", img)
             if a is not None:
@@ -474,6 +549,8 @@ class Trainer:
         os.makedirs(out_dir, exist_ok=True)
         for j, v in enumerate(provider.test_views()):
             img, depth = self.render_view(v["pose"], v["intrinsics"], v["H"], v["W"])
+            if not self.primary:
+                continue
             write_png(os.path.join(out_dir, f"{j:04d}.png"), _to8(img))
             write_png(os.path.join(out_dir, f"{j:04d}_depth.png"), _to8(depth))
             np.save(os.path.join(out_dir, f"{j:04d}_raw.npy"), img)
@@ -485,7 +562,10 @@ class Trainer:
         utils.py:712-732): field_density on a resolution^3 grid over the
         bound's box, marching tetrahedra on the trainer's device, written
         to meshes/{expname}_ep{epoch:04d}.obj (.ply by suffix).  The
-        query, extraction and write seconds go to self.mesh_seconds."""
+        query, extraction and write seconds go to self.mesh_seconds.  Under
+        a mesh rank 0 alone exports it; the others return None."""
+        if not self.primary:
+            return None
         path = path or os.path.join(self.workspace, "meshes",
                                     f"{self.cfg.expname}_ep{self.epoch:04d}.obj")
         os.makedirs(os.path.dirname(path), exist_ok=True)

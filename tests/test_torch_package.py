@@ -43,7 +43,8 @@ def test_package_imports_no_jax():
         "        'enerf_torch.data.eds', 'enerf_torch.utils.mesh',\n"
         "        'enerf_torch.train.lpips', 'enerf_torch.utils.plotting',\n"
         "        'enerf_torch.utils.profiling', 'enerf_torch.viewer',\n"
-        "        'enerf_torch.tools.render'} <= set(mods), mods\n"
+        "        'enerf_torch.tools.render', 'enerf_torch.cli', 'enerf_torch.parallel.mesh',\n"
+        "        'enerf_torch.parallel.multihost'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -84,9 +85,15 @@ def test_entry_points_want_the_card(tmp_path):
 
 
 def test_config_parses_tpu_flags_and_refuses_missing_paths():
-    cfg = _cfg("--fuse_steps", "4", "--segsum_grad", "1", "--mesh_shape", "2")
+    from enerf_torch.config import TPU_ONLY
+    cfg = _cfg("--fuse_steps", "4", "--segsum_grad", "1")
     assert cfg.fp16 and cfg.cuda_ray and cfg.preload and cfg.ff
     check_supported(cfg)  # TPU-only options are accepted (and ignored)
+    # the data-parallel options are the port's own (parallel/, cli.py)
+    cfg = _cfg("--mesh_shape", "2", "--multihost", "1")
+    assert cfg.mesh_shape == [2] and cfg.multihost == 1
+    assert not {"mesh_shape", "multihost"} & set(TPU_ONLY) and "fuse_steps" in TPU_ONLY
+    check_supported(cfg)
     # the no-event pair, the device slerp, the frame term, march_warmup and
     # frames mode are ported
     check_supported(_cfg("--negative_event_sampling", "1", "--precompute_evs_poses", "0"))
