@@ -5,7 +5,7 @@
 
 Phases (one line each; any failure exits non-zero before the result lines):
   1. device: the card's name and power limit (nvidia-smi), CUDA required;
-  2. build: every csrc/*.cu kernel, one nvcc each, started together, with
+  2. build: every csrc/*.cu kernel (K1-K3, M1), one nvcc each, started together, with
      the -Xptxas -v register / shared-memory / spill lines, and the count of
      tensor-core instructions in K1's SASS, of bulk copies in K3's and of
      shared-memory atomics in K2's accumulation (cuobjdump; a kernel
@@ -25,15 +25,34 @@ Phases (one line each; any failure exits non-zero before the result lines):
      that runs K3);
   4. main path: the --ff -O event trainer at full field width (16 x 2
      levels, blk4, 2^19 hash budget, hidden 64, geo 15, SH 4) on the
-     synthetic event scene, one epoch of 48 steps (occupancy updates at
-     steps 0, 16, 32) through train(train, val, 1): a checkpoint and the
-     affine-corrected evaluation of 2 val views with LPIPS (alex, vgg) on
-     the card, after the run diagnostics; then a new Trainer resumed from
-     the 'latest' checkpoint must hold the same params, EMA and step;
-  5. inference: one validation view through the alive-ray inference renderer;
+     synthetic event scene, one epoch of 48 steps as three 16-step
+     windows (fuse_steps 16, train/chunk.py: the occupancy update at each
+     window's start, one step captured in a CUDA graph and replayed)
+     through train(train, val, 1): a checkpoint and the affine-corrected
+     evaluation of 2 val views with LPIPS (alex, vgg) on the card, after
+     the run diagnostics; one log line a window, state.step 48,
+     iter_density 3, M1 launched twice a step and no march host sync in
+     the steps; then a new Trainer resumed from the 'latest' checkpoint
+     must hold the same params, EMA and step;
+  5. inference: one validation view through the alive-ray inference
+     renderer (M1 a window); the same view with the plain march in M1's
+     place within 1e-5, and the view's first and last march windows held
+     against `_march` ray by ray, as in 6b;
   6. breakdown: one more step, split into its parts on the host clock;
      then save_mesh(256, 10.0) (query, extraction, write, size) and the
      card's marching_tets on a 64^3 grid of the field equal to the CPU's;
+  6b. M1 (the march kernel) against its plain version `_march`: valid
+     identical and ts / dts / t_end bit-equal on >= 99.99% of rays (each
+     differing ray printed with its first differing slot) at the main
+     path's 4096 rays x 64 samples (a main-path batch through the trained
+     grid) and bench.py's 8192 x 32 (the ball bitfield), there also with
+     dt_gamma 1/256; kernel, plain and bound times;
+  6c. window: one main-path window eagerly under
+     torch.cuda.set_sync_debug_mode("error") (no host sync), then from one
+     state and generator states the graphed window against the eager one
+     (loss within 1e-4, params within 2e-2 of the update by norm), in
+     turns; the kernel launches a replay adds to the counts (recorded in
+     the capture) against the kernels torch.profiler sees in one replay;
   7. K2 path: bench.py's march step at its reference shape (16 x 2, blk4,
      separate marches, 8192 rays x 32 samples, compact_frac 0.25, bf16,
      the ball bitfield) with fast_table_grad on (K2) and off (index_add_),
@@ -62,8 +81,8 @@ Phases (one line each; any failure exits non-zero before the result lines):
  10. frames on the march: --ff -O --event_only 0 --march_warmup 4, 8 steps:
      the trainer's mark_untrained_grid from the first frame camera (its
      share of marked cells > 0 and equal to a direct call's), 4 fixed-step
-     steps with remat, 4 march steps
-     through K1; loss_frames finite at every step;
+     steps with remat, 4 march steps through K1 and M1 (12 launches each,
+     no march host sync); loss_frames finite at every step;
  11. esim fixture: a 480 x 640, 6-frame esim directory written by the
      port's save_esim_dataset under build/chip_smoke_esim/ (images/,
      images_corrupted/ with seeded noise, events/, poses_all.txt,
@@ -72,10 +91,13 @@ Phases (one line each; any failure exits non-zero before the result lines):
      a frame filtered with Paeth on every row;
  12. frames mode at the published width: configs/spiral1/spiral1_nerf.txt
      as published (hash grid 16 x 2, 480 x 640, 30,096 rays x 512 steps)
-     on the fixture, with one val index and one 16-step epoch: steps/s,
-     peak memory, the checkpoint's and the evaluation's seconds (one
-     480 x 640 view), PSNR and LPIPS; finite losses and PSNR; one more
-     step split into its parts; save_mesh(256, 10.0);
+     on the fixture, with one val index and two 16-step epochs, one graphed
+     window each (captured in the first, the graph kept and replayed in
+     the second; one capture): steps/s of each epoch, peak memory, the
+     checkpoint's and the evaluation's seconds (one 480 x 640 view), PSNR
+     and LPIPS; finite losses and PSNR; one more step split into its
+     parts; save_mesh(256, 10.0); then the same two epochs on the per-step
+     path (--fuse_steps 1): steps/s and peak memory against the windows';
  13. events + frames from the esim loader at the published width:
      configs/shakeCarpet1/shakeCarpet1_enerfBoth.txt (images_corrupted,
      the scene's pose offset), 8 steps: steps/s and peak memory; a
@@ -96,13 +118,14 @@ Phases (one line each; any failure exits non-zero before the result lines):
      only, 2 renders of 20,096 rays x 512 steps, the stereo event views)
      on the fixture, train / val indices cut to its 6 frames: one batch
      under torch.cuda.set_sync_debug_mode("error") (the window is drawn
-     on the card), 8 steps and one evaluation (a 720 x 1280 frame view
-     and its stereo event view): steps/s, peak memory, each view's
-     seconds, LPIPS, the stereo PNG and _raw.npy, finite losses, the run
-     diagnostics (the card has no matplotlib: the numeric images only),
-     K1 / K2 / K3 launches on the path; a torch.OutOfMemoryError as published is
-     printed as the config's result and the phase reruns with
-     --remat_fixed 1;
+     on the card), two 16-step epochs (one graphed window each, as in
+     12) and one evaluation (a 720 x 1280 frame view and its stereo
+     event view), then the two epochs on the per-step path: steps/s, peak
+     memory (allocated and reserved), each view's seconds, LPIPS, the
+     stereo PNG and _raw.npy, finite losses, the run diagnostics (the card
+     has no matplotlib: the numeric images only), K1 / K2 / K3 launches on
+     the path; a torch.OutOfMemoryError as published is printed as the
+     config's result and the phase reruns with --remat_fixed 1;
  17. configs/eds11/eds11_enerf.txt as published (eds, event only, the
      no-event pairs: 2 x 30,096 + 2 x 15,048 rays x 512 steps) on an EDS
      directory written by the port's save_eds_dataset from phase 11's
@@ -765,47 +788,67 @@ def phase_main_path(workspace):
           f"{len(val.val_views())} val views")
     steps = 48
     train.steps_per_epoch = steps
+    # the steps' march host syncs and M1 launches apart from the evaluation's
+    at_eval, evaluate = {}, trainer.evaluate
 
+    def counted_evaluate(*a, **kw):
+        at_eval.update(syncs=march_rays.host_syncs, m1=march_rays.launches)
+        return evaluate(*a, **kw)
+
+    trainer.evaluate = counted_evaluate
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_mlp.fused_field_head.launches = 0
     scatter_accum.block_table_grad.launches = 0
-    march_rays.host_syncs = 0
+    march_rays.host_syncs = march_rays.launches = 0
     t0 = time.time()
     trainer.train(train, val, max_epoch=1)
     torch.cuda.synchronize()
     wall = time.time() - t0
+    del trainer.evaluate
     launches = fused_mlp.fused_field_head.launches
     k2_launches = scatter_accum.block_table_grad.launches
+    step_syncs, step_m1 = at_eval["syncs"], at_eval["m1"]
     secs = trainer.epoch_seconds  # the trainer's synchronized split of the epoch
     step_s = secs["steps"]
     losses = [aux["loss"] for _, aux in trainer.history]
-    print(f"[main] losses at logged steps: "
+    print(f"[main] window means at logged steps: "
           + ", ".join(f"{s}:{aux['loss']:.5f}" for s, aux in trainer.history))
     print(f"[main] train(train, val, 1): {wall:.2f} s = {steps / wall:.3f} steps/s with the "
-          f"epoch tail; the {steps} steps {step_s:.2f} s = {steps / step_s:.3f} steps/s "
+          f"epoch tail; the {steps} steps ({steps // cfg.fuse_steps} graphed {cfg.fuse_steps}-step "
+          f"windows, the first captured) {step_s:.2f} s = {steps / step_s:.3f} steps/s "
           f"(3 occupancy updates included); tail "
           + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items() if k != "steps")
           + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"K1 launches {launches} (evaluation included); K2 launches {k2_launches}; "
-          f"march host syncs {march_rays.host_syncs} (steps and evaluation)")
+          f"M1 launches {step_m1} in the steps (a replay's counted from the capture, "
+          f"held to a profiled replay in phase 6c), {march_rays.launches - step_m1} in the "
+          f"evaluation; march host syncs {step_syncs} in the steps, "
+          f"{march_rays.host_syncs - step_syncs} in the evaluation (its infer windows)")
     res = trainer.last_eval
     print("[main] eval: " + ", ".join(
         f"{k} {res.get(k)}" for k in ("psnr", "ssim", "affine_a", "affine_b",
                                       "psnr_corrected", "ssim_corrected"))
           + "; " + lpips_text(trainer))
     print(f"[main] {diagnostics_text(trainer)}")
-    if not (len(losses) == steps // cfg.log_every and np.isfinite(losses).all()):
-        raise AssertionError(f"main path losses not all finite: {losses}")
-    if trainer.occupancy.iter_density != 3:
-        raise AssertionError(f"iter_density {trainer.occupancy.iter_density} != 3")
+    # one log line a window: JAX's trainer logs when global_step // log_every
+    # changes, and each 16-step window crosses a multiple of log_every 8
+    if not (len(losses) == steps // cfg.fuse_steps and np.isfinite(losses).all()):
+        raise AssertionError(f"main path window losses not one a window, or not finite: "
+                             f"{losses}")
+    if trainer.state.step != steps or trainer.occupancy.iter_density != 3:
+        raise AssertionError(f"step {trainer.state.step} != {steps} or iter_density "
+                             f"{trainer.occupancy.iter_density} != 3")
     if launches < 2 * steps:
         raise AssertionError(f"K1 launched {launches} times in {steps} steps")
+    if step_m1 != 2 * steps or step_syncs:
+        raise AssertionError(f"the steps launched M1 {step_m1} times (2 a step expected) and "
+                             f"took {step_syncs} march host syncs (0 expected)")
     if k2_launches:
         raise AssertionError("the main path's table backward is index_add_, yet K2 launched")
     if not all(np.isfinite(res.get(k, np.nan)) for k in ("psnr_corrected", "ssim_corrected")):
         raise AssertionError(f"evaluation gave no finite corrected metrics: {res}")
-    return trainer, train, val, launches
+    return trainer, train, val, launches, march_rays.launches
 
 
 def phase_resume(trainer, workspace):
@@ -834,12 +877,12 @@ def phase_breakdown(trainer, train):
     import torch
     from enerf_torch.ops.aabb import aabb_tensor, near_far_from_aabb
     from enerf_torch.render.march import composite_from_march, march_rays
-    from enerf_torch.render.occupancy import update_occupancy
+    from enerf_torch.render.occupancy import clone_occupancy, update_occupancy
     from enerf_torch.train import losses
     from enerf_torch.train.step import draw_noise
 
     ss, state, fs = trainer.ss, trainer.state, trainer.ss.field_static
-    occ = trainer.occupancy.occ_bitfield
+    occ = trainer.occupancy.occ_packed
     parts = {}
 
     def timed(name, fn):
@@ -862,7 +905,8 @@ def phase_breakdown(trainer, train):
         ts, dts, valid = timed("march", lambda: march_rays(
             o, d, occ, nears, fars, jitter=noise[f"jitter{i}"],
             num_samples=ss.march_samples, max_steps=ss.max_steps,
-            cascades=occ.shape[0], bound=fs.bound, dt_gamma=ss.dt_gamma, perturb=True))
+            cascades=trainer.occupancy.density_grid.shape[0], bound=fs.bound,
+            dt_gamma=ss.dt_gamma, perturb=True))
         out = timed("encode + K1 + composite (forward)", lambda: composite_from_march(
             state.params, fs, o, d, ts, dts, valid, nears, fars,
             bg_color=noise["bg"].expand(N, ss.out_dim_color),
@@ -876,8 +920,10 @@ def phase_breakdown(trainer, train):
 
     timed("loss + backward", loss_backward)
     timed("adam + ema", state.apply_updates)
+    # on a copy: the update writes in place
+    occ_copy = clone_occupancy(trainer.occupancy)
     timed("occupancy update (1 in 16 steps)", lambda: update_occupancy(
-        state.params, fs, trainer.occupancy, trainer.generator,
+        state.params, fs, occ_copy, trainer.generator,
         density_scale=trainer.cfg.density_scale, density_thresh=trainer.cfg.density_thresh))
     print("[breakdown] one step, ms (host clock, synchronized): "
           + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
@@ -885,28 +931,315 @@ def phase_breakdown(trainer, train):
 
 
 def phase_inference(trainer, val):
+    """One main-path view (64 x 64) through `Trainer.render_view`, the
+    alive-ray inference renderer with M1: finite, in [0, 1], through K1.
+    Then M1 at the inference renderer's shapes: the same view rendered
+    with the plain march `_march` in M1's place, on the same CUDA inputs,
+    within 1e-5 of M1's view in image and depth; and the first and the
+    last march window of M1's render (t0 carried from the window before,
+    dead rays started at or past far) held against `_march` ray by ray
+    (m1_compare).  Returns m1_compare's numbers of both windows."""
     import numpy as np
     import torch
     from enerf_torch.ops import fused_mlp
-    from enerf_torch.render.march import march_rays
+    from enerf_torch.render import march as M
 
     v = val.val_views()[0]
     fused_mlp.fused_field_head.launches = 0
-    march_rays.host_syncs = 0
-    torch.cuda.synchronize()
-    t0 = time.time()
-    img, depth = trainer.render_view(v["pose"], v["intrinsics"], v["H"], v["W"])
-    wall = time.time() - t0
-    launches = fused_mlp.fused_field_head.launches
+    M.march_rays.host_syncs = 0
+    kernel, windows = M.launch_kernel, []
+
+    def recording(*a, **kw):  # keeps each window's inputs
+        windows.append(([x.clone() for x in a], dict(kw)))
+        return kernel(*a, **kw)
+
+    M.launch_kernel = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img, depth = trainer.render_view(v["pose"], v["intrinsics"], v["H"], v["W"])
+        wall = time.time() - t0
+        launches, syncs = fused_mlp.fused_field_head.launches, M.march_rays.host_syncs
+        M.launch_kernel = M._march  # the plain march on the same CUDA tensors
+        t0 = time.time()
+        img_p, depth_p = trainer.render_view(v["pose"], v["intrinsics"], v["H"], v["W"])
+        plain_wall = time.time() - t0
+    finally:
+        M.launch_kernel = kernel
     ok = (np.isfinite(img).all() and img.min() >= 0.0 and img.max() <= 1.0 + 1e-6
           and np.isfinite(depth).all())
     print(f"[infer] view {v['H']}x{v['W']}: {wall:.2f} s, image mean {img.mean():.4f} "
           f"in [{img.min():.4f}, {img.max():.4f}], K1 launches {launches}, "
-          f"march host syncs {march_rays.host_syncs} -> {'ok' if ok else 'FAIL'}")
+          f"{len(windows)} march windows, march host syncs {syncs} -> "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("inference image not finite or outside [0, 1]")
     if launches == 0:
         raise AssertionError("inference did not go through K1")
+    d_img, d_depth = float(np.abs(img - img_p).max()), float(np.abs(depth - depth_p).max())
+    same = d_img <= 1e-5 and d_depth <= 1e-5
+    print(f"[infer] the same view with the plain march in M1's place ({plain_wall:.2f} s): "
+          f"max |diff| image {d_img:.3e}, depth {d_depth:.3e} (tol 1e-5) -> "
+          f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("the inference view with M1 disagrees with the plain march's")
+    out = {}
+    for tag, i in (("first", 0), ("last", len(windows) - 1)):
+        args, kw = windows[i]
+        out[tag] = m1_compare(f"infer window {i + 1} of {len(windows)}", *args, **kw)
+    return out
+
+
+# M1's operations a (ray, lookup) pair, counted from the kernel's lookup()
+# and find_cell() (csrc/march_rays.cu's note): 94 float32 operations (87
+# in the lookup, 7 in a skip; log2f / exp2f / ceilf one each) and 39
+# integer ones, all charged at the float32 rate
+M1_OPS_PER_LOOKUP = 94 + 39
+
+
+def m1_bound(N, S, cascades, lookups):
+    """Least time for M1's work: its inputs read once (rays 24 bytes, nears,
+    fars, t0 12 bytes a ray; the packed bitfield 8 bytes a superblock), its
+    outputs written once (ts, dts 8 bytes and valid 1 a slot, t_end 4 a
+    ray), and M1_OPS_PER_LOOKUP operations for each (ray, lookup) pair
+    that this run's rays make (counted by the plain version), at the
+    float32 rate."""
+    nbytes = N * (24 + 12 + 4) + N * S * 9 + cascades * 32 ** 3 * 8
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = lookups * M1_OPS_PER_LOOKUP / PEAK_FLOPS["float32"] * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), nbytes
+
+
+def m1_compare(tag, o, d, bits, nears, fars, t0, **kw):
+    """M1 against `_march` on the same inputs: valid identical, and the
+    share of rays whose ts, dts and t_end are bit-equal (>= 99.99%); every
+    differing ray printed with its first differing slot.  Returns the
+    kernel line's numbers."""
+    import torch
+    from enerf_torch.render import march as M
+
+    def bits_of(x):
+        return x.contiguous().view(torch.int32)
+
+    got = M.launch_kernel(o, d, bits, nears, fars, t0, **kw)
+    lookups0 = M.march_rays.lookups
+    ref = M._march(o, d, bits, nears, fars, t0, **kw)
+    lookups = M.march_rays.lookups - lookups0
+    torch.cuda.synchronize()
+    N, S = got[0].shape
+    valid_same = bool(torch.equal(got[2], ref[2]))
+    slot_same = ((bits_of(got[0]) == bits_of(ref[0])) & (bits_of(got[1]) == bits_of(ref[1]))
+                 & (got[2] == ref[2]))
+    ray_same = slot_same.all(1) & (bits_of(got[3]) == bits_of(ref[3]))
+    share = float(ray_same.float().mean())
+    bad = torch.nonzero(~ray_same).flatten()[:20].tolist()
+    for i in bad:
+        row = (~slot_same[i]).nonzero().flatten()
+        j = int(row[0]) if row.numel() else -1  # -1: only t_end differs
+
+        def slot(out):
+            return [float(out[0][i, j]), float(out[1][i, j]), bool(out[2][i, j])]
+
+        print(f"[m1] {tag}: ray {i} differs from slot {j}: kernel ts/dts/valid "
+              f"{slot(got) if j >= 0 else ''}, plain {slot(ref) if j >= 0 else ''}, t_end "
+              f"{float(got[3][i])} vs {float(ref[3][i])}")
+    max_abs = max(float((got[k].float() - ref[k].float()).abs().max()) for k in (0, 1, 3))
+    ms = time_ms(lambda: M.launch_kernel(o, d, bits, nears, fars, t0, **kw), iters=20)
+    plain_ms = time_ms(lambda: M._march(o, d, bits, nears, fars, t0, **kw), iters=2, warmup=1)
+    bound_ms, bound_by, nbytes = m1_bound(N, S, kw["cascades"], lookups)
+    ok = valid_same and share >= 0.9999
+    print(f"[m1] {tag}: {N} rays x {S} samples, {int(ref[2].sum())} valid, {lookups} lookups "
+          f"({lookups / N:.1f} a ray): valid identical {valid_same}, rays bit-equal "
+          f"{share:.6f} ({N - int(ray_same.sum())} differ), max |diff| {max_abs:.3e} -> "
+          f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+          f"{bound_ms:.5f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, {lookups} x "
+          f"{M1_OPS_PER_LOOKUP} ops), share of bound {bound_ms / ms:.2%}")
+    if not ok:
+        raise AssertionError(f"M1 disagrees with its plain version at {tag}")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, share_of_bound=bound_ms / ms,
+                rays_bit_equal=share, lookups=lookups)
+
+
+def phase_march_kernel(trainer, train):
+    """M1 against its plain version at the main path's shape (4096 event
+    rays x 64 samples of a main-path batch, jittered, through the trained
+    occupancy grid) and at bench.py's (8192 rays x 32 samples from (0, 0,
+    -2.5) in random directions, the ball bitfield), the latter also with
+    dt_gamma 1/256 (one sample a lookup)."""
+    import torch
+    from enerf_torch.ops.aabb import aabb_tensor, near_far_from_aabb
+    from enerf_torch.render.march import SQRT3
+    from enerf_torch.render.occupancy import ball_bitfield, pack_bitfield
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ss = trainer.ss
+    batch = train.train_step_batch(gen)
+    o, d = batch["rays_evs_o1"].contiguous(), batch["rays_evs_d1"].contiguous()
+    nears, fars = near_far_from_aabb(o, d, aabb_tensor(trainer.static.bound, "cuda"),
+                                     ss.min_near)
+    t0 = nears + (2.0 * SQRT3 / ss.max_steps) * torch.rand(o.shape[0], device="cuda",
+                                                           generator=gen)
+    occ = trainer.occupancy
+    out = {"main": m1_compare(
+        "main path", o, d, occ.occ_packed, nears, fars, t0, num_samples=ss.march_samples,
+        max_steps=ss.max_steps, cascades=occ.density_grid.shape[0],
+        bound=trainer.static.bound, dt_gamma=ss.dt_gamma)}
+    n = 8192
+    d = torch.randn(n, 3, device="cuda", generator=gen)
+    d = d / d.norm(dim=-1, keepdim=True)
+    o = torch.tensor([[0.0, 0.0, -2.5]], device="cuda").expand(n, 3).contiguous()
+    nears, fars = near_far_from_aabb(o, d, aabb_tensor(1.0, "cuda"), 0.2)
+    t0 = nears + (2.0 * SQRT3 / 1024) * torch.rand(n, device="cuda", generator=gen)
+    bits = pack_bitfield(ball_bitfield(device="cuda"))
+    for gamma, key in ((0.0, "bench"), (1.0 / 256, "bench_dt_gamma")):
+        out[key] = m1_compare(f"bench.py, dt_gamma {gamma:g}", o, d, bits, nears, fars, t0,
+                              num_samples=32, max_steps=1024, cascades=1, bound=1.0,
+                              dt_gamma=gamma)
+    return out
+
+
+def state_snapshot(trainer):
+    """Copies of what a training window changes: the state's tensors and
+    step, the occupancy's tensors and count, the generators' states."""
+    st, occ = trainer.state, trainer.occupancy
+    tensors = {(name, k): v.detach().clone()
+               for name in ("params", "ema_params", "exp_avg", "exp_avg_sq")
+               for k, v in getattr(st, name).items()}
+    tensors[("count", None)] = st.count.clone()
+    for f in ("density_grid", "occ_bitfield", "mean_density", "occ_packed"):
+        tensors[("occ", f)] = getattr(occ, f).clone()
+    return dict(tensors=tensors, step=st.step, iter_density=occ.iter_density,
+                gens=[g.get_state() for g in (trainer.generator, trainer.rank_generator)])
+
+
+def state_restore(trainer, snap):
+    """Put `snap` back in place (the same tensors: a captured graph reads them)."""
+    import torch
+    st = trainer.state
+    with torch.no_grad():
+        for (name, k), v in snap["tensors"].items():
+            if name == "occ":
+                getattr(trainer.occupancy, k).copy_(v)
+            elif name == "count":
+                st.count.copy_(v)
+            else:
+                getattr(st, name)[k].copy_(v)
+    st.step = snap["step"]
+    trainer.occupancy = trainer.occupancy._replace(iter_density=snap["iter_density"])
+    for g, state in zip((trainer.generator, trainer.rank_generator), snap["gens"]):
+        g.set_state(state)
+
+
+def phase_window(trainer, train):
+    """One main-path window (train/chunk.py) run eagerly under
+    torch.cuda.set_sync_debug_mode("error"): no host sync in its occupancy
+    update, batches, marches and steps.  Then, from one state and one set
+    of generator states, the eager window against the graphed one (the
+    trainer's captured graph, replayed 16 times): the window's mean loss
+    within 1e-4 relative, each leaf's params within 2e-2 of the window's
+    update by norm and within 2 lr x 16 everywhere (index_add_'s float
+    atomics make two runs differ at the rounding level; Adam then steps
+    small gradients either way, as between two ranks, dp_check)."""
+    import torch
+    from enerf_torch.render.march import march_rays
+
+    chunk = trainer._chunk(train, trainer.cfg.fuse_steps, trainer.state.step)
+    K = chunk.chunk_len
+    syncs = march_rays.host_syncs
+    torch.cuda.synchronize()
+    t0 = time.time()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.occupancy, aux = chunk.eager(trainer.state, trainer.occupancy, train,
+                                             trainer.generator, trainer.rank_generator)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    sync_s = time.time() - t0
+    print(f"[window] one {K}-step window eagerly under set_sync_debug_mode('error'): no host "
+          f"sync ({sync_s:.2f} s, loss {float(aux['loss']):.6f}, march host syncs "
+          f"{march_rays.host_syncs - syncs})")
+
+    snap = state_snapshot(trainer)
+    p0 = {k: v for (name, k), v in snap["tensors"].items() if name == "params"}
+    runs = {}
+    for mode in ("eager", "graph", "graph", "eager"):  # in turns: one card, one call
+        state_restore(trainer, snap)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if mode == "eager":
+            occ, aux = chunk.eager(trainer.state, trainer.occupancy, train, trainer.generator,
+                                   trainer.rank_generator)
+        else:
+            occ, aux = chunk(trainer.state, trainer.occupancy, train, trainer.generator,
+                             trainer.rank_generator)
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        trainer.occupancy = occ
+        runs.setdefault(mode, []).append(dict(
+            s=sec, loss=float(aux["loss"]),
+            params={k: v.detach().clone() for k, v in trainer.state.params.items()}))
+    e, g = runs["eager"][0], runs["graph"][0]
+    lr = trainer.cfg.lr
+    worst_rel, worst_abs = 0.0, 0.0
+    for k, pe in e["params"].items():
+        upd = float(torch.linalg.vector_norm(pe - p0[k]))
+        diff = float(torch.linalg.vector_norm(g["params"][k] - pe))
+        worst_rel = max(worst_rel, diff / upd if upd else (0.0 if diff == 0 else float("inf")))
+        worst_abs = max(worst_abs, float((g["params"][k] - pe).abs().max()))
+    loss_rel = abs(g["loss"] - e["loss"]) / abs(e["loss"])
+    same = all(torch.equal(g["params"][k], pe) for k, pe in e["params"].items())
+    ok = loss_rel <= 1e-4 and worst_rel <= 2e-2 and worst_abs <= 2 * K * lr * (1 + 1e-4)
+    print(f"[window] graphed vs eager from one state and draws: window loss "
+          f"{g['loss']:.6f} vs {e['loss']:.6f} (rel {loss_rel:.2e}, tol 1e-4); params "
+          f"{'bit-equal' if same else 'differ'}: worst leaf ||diff|| / ||update|| "
+          f"{worst_rel:.2e} (tol 2e-2), max |diff| {worst_abs:.3e} (tol {2 * K * lr:g}); "
+          f"eager {[round(r['s'], 3) for r in runs['eager']]} s, graphed "
+          f"{[round(r['s'], 3) for r in runs['graph']]} s a window -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the graphed window disagrees with the eager one")
+    per_replay = {c.__name__: n for c, n in chunk.per_replay.items()}
+    seen = replay_profile(chunk)
+    agree = seen is None or seen == per_replay
+    print(f"[window] kernel launches a replay adds to the counts (recorded in the capture) "
+          f"{per_replay}; torch.profiler in one replay: "
+          f"{seen if seen is not None else 'no device kernel recorded: not measured'} -> "
+          f"{'ok' if agree else 'FAIL'}")
+    if not agree:
+        raise AssertionError("a replay's launch counts disagree with the profiled replay")
+    trainer._release_windows()
+    return dict(eager_s=[r["s"] for r in runs["eager"]], graph_s=[r["s"] for r in runs["graph"]],
+                launches_per_replay=per_replay, profiled_replay=seen)
+
+
+# the port's kernels by the counter of their wrapper, and the CUDA kernel
+# each wrapper launch runs once (csrc/*.cu)
+KERNEL_NAMES = {"fused_field_head": ("head_bf16_kernel", "head_f32_kernel"),
+                "block_table_grad": ("accumulate_kernel",),
+                "group_gather": ("group_gather_kernel",),
+                "march_rays": ("march_rays_kernel",)}
+
+
+def replay_profile(chunk):
+    """One replay of a window's captured step under torch.profiler ->
+    {counter: the kernels of that wrapper the profiler saw}, or None when
+    it recorded no device kernel at all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chunk.graph.replay()
+        torch.cuda.synchronize()
+    seen, any_kernel = {name: 0 for name in KERNEL_NAMES}, False
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        any_kernel = True
+        for name, kernels in KERNEL_NAMES.items():
+            seen[name] += any(k in ev.name for k in kernels)
+    return seen if any_kernel else None
 
 
 def phase_k2_path():
@@ -1105,11 +1438,12 @@ def phase_default_path(workspace):
     secs = trainer.epoch_seconds
     hist = trainer.history
     lf = [aux["loss_frames"] for _, aux in hist]
-    print("[default] losses at logged steps: " + ", ".join(
+    print("[default] window means at logged steps: " + ", ".join(
         f"{s}: loss {aux['loss']:.5f} evs {aux['loss_evs']:.5f} frames {aux['loss_frames']:.5f}"
         for s, aux in hist))
     print(f"[default] train(train, val, 1): {wall:.2f} s = {steps / wall:.3f} steps/s with the "
-          f"epoch tail; the {steps} steps {secs['steps']:.2f} s = "
+          f"epoch tail; the {steps} steps ({steps // cfg.fuse_steps} graphed windows, the first "
+          f"captured) {secs['steps']:.2f} s = "
           f"{steps / secs['steps']:.3f} steps/s; tail "
           + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items() if k != "steps")
           + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel "
@@ -1127,7 +1461,8 @@ def phase_default_path(workspace):
           + "; affine-corrected (the same renders): "
           + ", ".join(f"{k} {corr[k]}" for k in ("affine_a", "affine_b", "psnr_corrected",
                                                  "ssim_corrected")))
-    if not (len(hist) == steps // cfg.log_every and np.isfinite(lf).all() and max(lf) > 0
+    # one log line a window (each 16-step window crosses a multiple of 8)
+    if not (len(hist) == steps // cfg.fuse_steps and np.isfinite(lf).all() and max(lf) > 0
             and np.isfinite([aux["loss"] for _, aux in hist]).all()):
         raise AssertionError(f"default path losses not finite or loss_frames never > 0: {hist}")
     if not all(np.isfinite(x) for x in (res.get("psnr", np.nan), res.get("ssim", np.nan),
@@ -1432,7 +1767,7 @@ def phase_march_warmup(workspace):
     # camera alone leaves some unseen, so the trainer marks from it only
     train.train_poses = train.train_poses[:1]
     fused_mlp.fused_field_head.launches = 0
-    march_rays.host_syncs = 0
+    march_rays.host_syncs = march_rays.launches = 0
     t0 = time.time()
     trainer.train(train, max_epoch=1)
     torch.cuda.synchronize()
@@ -1448,13 +1783,16 @@ def phase_march_warmup(workspace):
           f"{untrained} of the grid from {len(train.train_poses)} frame camera "
           f"({one_cam} by a direct call on the same pose); "
           f"loss_frames per step {[f'{x:.4e}' for x in lf]}; "
-          f"K1 launches {launches} (3 renders x 4 march steps = 12); march host syncs "
-          f"{march_rays.host_syncs}")
+          f"K1 launches {launches}, M1 launches {march_rays.launches} (3 renders x 4 march "
+          f"steps = 12 each); march host syncs {march_rays.host_syncs}")
     if not (len(lf) == 8 and np.isfinite(lf).all()):
         raise AssertionError(f"loss_frames not finite at every step: {lf}")
-    if launches != 12 or march_rays.host_syncs == 0:
-        raise AssertionError(f"expected 4 warm steps without K1 and 4 march steps with it: "
-                             f"K1 launches {launches}, host syncs {march_rays.host_syncs}")
+    # the march shows in M1's launches (the plain version's host syncs did,
+    # before the march was a kernel)
+    if launches != 12 or march_rays.launches != 12 or march_rays.host_syncs:
+        raise AssertionError(f"expected 4 warm steps without K1 and M1 and 4 march steps with "
+                             f"them: K1 launches {launches}, M1 launches "
+                             f"{march_rays.launches}, host syncs {march_rays.host_syncs}")
     if not (0.0 < untrained == one_cam < 1.0):
         raise AssertionError(f"the trainer marked {untrained} of the cells untrained, "
                              f"a direct mark_untrained_grid call {one_cam}")
@@ -1542,8 +1880,8 @@ def esim_config(config, datadir, workspace, *extra):
         *extra])
 
 
-def esim_run(cfg, workspace, steps, evaluate, providers=None):
-    """One epoch of `steps` steps through the entry points of
+def esim_run(cfg, workspace, steps, evaluate, providers=None, epochs=1):
+    """`epochs` epochs of `steps` steps through the entry points of
     `python -m enerf_torch` on the card: (trainer, (train, val) providers,
     data load seconds, peak memory GiB).  `providers` reuses a built pair;
     the trainer's `view_seconds` lists (H, W, seconds) of each rendered
@@ -1571,22 +1909,29 @@ def esim_run(cfg, workspace, steps, evaluate, providers=None):
     train.steps_per_epoch = steps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    trainer.train(train, val if evaluate else None, max_epoch=1)
+    trainer.train(train, val if evaluate else None, max_epoch=epochs)
     torch.cuda.synchronize()
+    # reserved: a window's captured graph holds its private pool there
+    trainer.peak_reserved_gib = torch.cuda.max_memory_reserved() / 2**30
     return trainer, (train, val), load, torch.cuda.max_memory_allocated() / 2**30
 
 
-def run_as_published(tag, name, make_cfg, workspace, steps, evaluate, providers=None):
+REMAT = ("with --remat_fixed 1", ("--remat_fixed", "1"))
+
+
+def run_as_published(tag, name, make_cfg, workspace, steps, evaluate, providers=None,
+                     fallbacks=(REMAT,), epochs=1):
     """esim_run of a published config as published; if it does not fit
     the card, the OutOfMemoryError is printed as its result and the run
-    repeats with --remat_fixed 1.  Returns (label, cfg, esim_run's tuple)."""
+    repeats with each of `fallbacks` (label, extra flags) in turn, until one
+    fits.  Returns (label, cfg, esim_run's tuple)."""
     import torch
-    for label, extra in (("as published", ()), ("with --remat_fixed 1", ("--remat_fixed", "1"))):
+    for i, (label, extra) in enumerate((("as published", ()),) + tuple(fallbacks)):
         cfg = make_cfg(*extra)
         try:
-            return label, cfg, esim_run(cfg, workspace, steps, evaluate, providers)
+            return label, cfg, esim_run(cfg, workspace, steps, evaluate, providers, epochs)
         except torch.OutOfMemoryError as e:
-            if extra:
+            if i == len(fallbacks):
                 raise
             print(f"[{tag}] {name} {label}: torch.OutOfMemoryError at "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated: "
@@ -1607,31 +1952,93 @@ def esim_shape_line(trainer, train, cfg):
             f"remat_fixed {ss.remat_fixed}")
 
 
+def window_epochs(tag, trainer, steps):
+    """The steps/s of a run of two `steps`-step epochs in windows: the
+    first captures the window's step, the second replays the graph kept
+    across the epochs (one capture in the run)."""
+    secs = [trainer.seconds_by_epoch[e]["steps"] for e in (1, 2)]
+    captures = sum(c.captures for c in trainer._chunk_cache.values())
+    print(f"[{tag}] in windows: epoch 1 (the capture) {secs[0]:.3f} s = "
+          f"{steps / secs[0]:.4f} steps/s, epoch 2 (replays of the graph kept across the "
+          f"epochs) {secs[1]:.3f} s = {steps / secs[1]:.4f} steps/s; {captures} capture(s)")
+    if captures != 1:
+        raise AssertionError(f"{tag}: {captures} captures in two epochs, 1 expected")
+    return steps / secs[0], steps / secs[1]
+
+
+def per_step_epochs(tag, name, make_cfg, workspace, steps, providers, window):
+    """Two `steps`-step epochs of the per-step path (--fuse_steps 1) on the
+    same providers, against the windows' (window_epochs, peak memory)."""
+    import numpy as np
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg1 = make_cfg("--fuse_steps", "1")
+    trainer, _, _, peak1 = esim_run(cfg1, workspace, steps, evaluate=False,
+                                    providers=providers, epochs=2)
+    secs = [trainer.seconds_by_epoch[e]["steps"] for e in (1, 2)]
+    losses1 = [aux["loss"] for _, aux in trainer.history]
+    reserved1 = trainer.peak_reserved_gib
+    print(f"[{tag}] {name} on the per-step path (--fuse_steps 1), the same 2 x {steps} steps: "
+          f"{steps / secs[0]:.4f} / {steps / secs[1]:.4f} steps/s, peak memory {peak1:.2f} GiB "
+          f"allocated, {reserved1:.2f} GiB reserved; epoch 2 in windows "
+          f"{window['replay_steps_s'] / (steps / secs[1]):.3f}x the per-step epoch 2's steps/s "
+          f"(epoch 1: {window['steps_s'] / (steps / secs[0]):.3f}x) at "
+          f"{window['peak_gib'] - peak1:+.2f} GiB allocated, "
+          f"{window['peak_reserved_gib'] - reserved1:+.2f} GiB reserved")
+    if not (len(losses1) == 2 * steps and np.isfinite(losses1).all()):
+        raise AssertionError(f"{name} per-step losses: {losses1}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(window, per_step_steps_s=steps / secs[0], per_step_epoch2_steps_s=steps / secs[1],
+                per_step_peak_gib=peak1, per_step_peak_reserved_gib=reserved1)
+
+
 def phase_esim_frames(datadir, workspace):
     """configs/spiral1/spiral1_nerf.txt as published (frames mode, hash
-    grid, 480 x 640, 30,096 rays x 512 steps) on the fixture: one 16-step
-    epoch with a checkpoint and the evaluation of one view."""
+    grid, 480 x 640, 30,096 rays x 512 steps) on the fixture: two 16-step
+    epochs, one graphed window each (fuse_steps 16, the default; captured
+    in the first, replayed in the second), a checkpoint each and the
+    evaluation of one view after the second; then the same epochs on the
+    per-step path (--fuse_steps 1), for steps/s and peak memory."""
     import numpy as np
+    import torch
 
     steps = 16
-    cfg = esim_config("spiral1/spiral1_nerf.txt", datadir, workspace, "--iters", str(steps))
-    trainer, (train, _), load, peak = esim_run(cfg, workspace, steps, evaluate=True)
+    print(f"[esim-frames] held before the phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+
+    def make_cfg(ws, *extra):
+        return esim_config("spiral1/spiral1_nerf.txt", datadir, ws, "--iters", str(2 * steps),
+                           "--eval_interval", "2", *extra)
+
+    cfg = make_cfg(workspace)
+    trainer, (train, val), load, peak = esim_run(cfg, workspace, steps, evaluate=True,
+                                                 epochs=2)
     secs, res = trainer.epoch_seconds, trainer.last_eval
     losses = [aux["loss"] for _, aux in trainer.history]
     print(f"[esim-frames] spiral1_nerf: {esim_shape_line(trainer, train, cfg)}; "
           f"{train.images.shape[0]} train frames, data loaded in {load:.2f} s")
-    print(f"[esim-frames] {steps} steps {secs['steps']:.3f} s = "
-          f"{steps / secs['steps']:.4f} steps/s (the first included); peak memory {peak:.2f} GiB; "
-          f"checkpoint {secs.get('checkpoint', float('nan')):.3f} s; evaluation of one "
-          f"{train.H}x{train.W} view {secs.get('evaluate', float('nan')):.3f} s; "
-          f"psnr {res.get('psnr')} ssim {res.get('ssim')}; {lpips_text(trainer)}; losses "
-          + ", ".join(f"{x:.5f}" for x in losses))
-    if not (len(losses) == steps and np.isfinite(losses).all()):
-        raise AssertionError(f"spiral1_nerf losses not all finite: {losses}")
+    first, replay = window_epochs("esim-frames", trainer, steps)
+    print(f"[esim-frames] peak memory {peak:.2f} GiB allocated, {trainer.peak_reserved_gib:.2f} "
+          f"GiB reserved (the graph's pool); checkpoint {secs.get('checkpoint', float('nan')):.3f} "
+          f"s; evaluation of one {train.H}x{train.W} view {secs.get('evaluate', float('nan')):.3f} "
+          f"s; psnr {res.get('psnr')} ssim {res.get('ssim')}; {lpips_text(trainer)}; window mean "
+          f"losses " + ", ".join(f"{x:.5f}" for x in losses))
+    if not (len(losses) == 2 and np.isfinite(losses).all() and trainer.state.step == 2 * steps):
+        raise AssertionError(f"spiral1_nerf: step {trainer.state.step}, losses {losses}")
     if not np.isfinite(res.get("psnr", np.nan)):
         raise AssertionError(f"spiral1_nerf evaluation gave no finite psnr: {res}")
     phase_frames_breakdown(trainer, train)
     phase_mesh("esim-frames", trainer)
+    window = dict(steps_s=first, replay_steps_s=replay, peak_gib=peak,
+                  peak_reserved_gib=trainer.peak_reserved_gib)
+    del trainer
+    ws = workspace + "_per_step"
+    return per_step_epochs("esim-frames", "spiral1_nerf", lambda *e: make_cfg(ws, *e), ws,
+                           steps, (train, val), window)
 
 
 def device_busy(fn):
@@ -1892,17 +2299,26 @@ def phase_stereo(tag, config, datadir, workspace, steps):
                group_gather.group_gather)
     for k in kernels:
         k.launches = 0
+    # a run of whole windows takes two epochs (the capture, then replays
+    # of the graph kept across them), evaluated after the second
+    epochs = 2 if steps % 16 == 0 else 1
+
+    def make_cfg(ws, *extra):
+        return stereo_config(config, datadir, ws, "--iters", str(epochs * steps),
+                             "--eval_interval", str(epochs), *extra)
+
     label, cfg, (trainer, _, _, peak) = run_as_published(
-        tag, name, lambda *extra: stereo_config(config, datadir, workspace, "--iters", str(steps),
-                                                *extra),
-        workspace, steps, evaluate=True, providers=(train, val))
+        tag, name, lambda *extra: make_cfg(workspace, *extra), workspace, steps, evaluate=True,
+        providers=(train, val), epochs=epochs)
     launches = [k.launches for k in kernels]
     secs, res, hist = trainer.epoch_seconds, trainer.last_eval, trainer.history
     evdir = os.path.join(trainer.workspace, "validation", "event_view")
     written = sorted(os.listdir(evdir)) if os.path.isdir(evdir) else []
     print(f"[{tag}] {name} {label}: {esim_shape_line(trainer, train, cfg)}")
-    print(f"[{tag}] {steps} steps {secs['steps']:.3f} s = {steps / secs['steps']:.4f} steps/s "
-          f"(the first included); peak memory {peak:.2f} GiB; evaluation "
+    windows = steps // cfg.fuse_steps if cfg.fuse_steps > 1 else 0
+    print(f"[{tag}] {epochs} x {steps} steps ({windows} graphed window(s) an epoch), the last "
+          f"epoch {secs['steps']:.3f} s = {steps / secs['steps']:.4f} steps/s; peak memory {peak:.2f} "
+          f"GiB allocated, {trainer.peak_reserved_gib:.2f} GiB reserved; evaluation "
           f"{secs.get('evaluate', float('nan')):.3f} s, its views "
           + ", ".join(f"{h}x{w} {t:.3f} s" for h, w, t in trainer.view_seconds)
           + f" (frame view(s), then stereo view(s)); psnr_corrected "
@@ -1911,24 +2327,38 @@ def phase_stereo(tag, config, datadir, workspace, steps):
           f"validation/event_view/: {written}; K1 / K2 / K3 launches {launches}; losses "
           + ", ".join(f"{aux['loss']:.5f}" for _, aux in hist))
     losses = [[v for k, v in aux.items() if k.startswith("loss")] for _, aux in hist]
-    if not (len(losses) == steps and np.isfinite(losses).all()):
+    # log_every 1: one line a window, one a step after the windows
+    if not (len(losses) == epochs * (windows + steps - windows * cfg.fuse_steps)
+            and np.isfinite(losses).all()):
         raise AssertionError(f"{name} losses not all finite: {hist}")
-    want = {f"ep0001_{j:04d}{s}" for j in range(len(STEREO_VAL))
+    ep = f"ep{trainer.epoch:04d}"
+    want = {f"{ep}_{j:04d}{s}" for j in range(len(STEREO_VAL))
             for s in (".png", "_raw.npy", "_depth.png")}
     shapes = [(h, w) for h, w, _ in trainer.view_seconds]
     if not (want <= set(written) and shapes[-1] == (train.H, train.W) and len(shapes) == 2):
         raise AssertionError(f"{name}: stereo view outputs {written}, views rendered {shapes}")
-    raw = np.load(os.path.join(evdir, "ep0001_0000_raw.npy"))
+    raw = np.load(os.path.join(evdir, f"{ep}_0000_raw.npy"))
     if not (raw.shape == (train.H, train.W, 1) and np.isfinite(raw).all()):
         raise AssertionError(f"{name}: stereo raw render {raw.shape} not finite")
     if tag == "tumvie":
         print(f"[{tag}] {diagnostics_text(trainer)}")
+    if epochs == 1:
+        return None
+    first, replay = window_epochs(tag, trainer, steps)
+    window = dict(steps_s=first, replay_steps_s=replay, peak_gib=peak,
+                  peak_reserved_gib=trainer.peak_reserved_gib)
+    del trainer
+    ws = workspace + "_per_step"
+    extra = () if label == "as published" else REMAT[1]
+    return per_step_epochs(tag, f"{name} {label}", lambda *e: make_cfg(ws, *extra, *e), ws,
+                           steps, (train, val), window)
 
 
 def reset_launches():
     from enerf_torch.ops import fused_mlp, group_gather, scatter_accum
+    from enerf_torch.render.march import march_rays
     kernels = (fused_mlp.fused_field_head, scatter_accum.block_table_grad,
-               group_gather.group_gather)
+               group_gather.group_gather, march_rays)
     for k in kernels:
         k.launches = 0
     return kernels
@@ -2282,7 +2712,9 @@ def dp_compare(mesh, cfg, workspace):
     from enerf_torch.data.provider import make_providers
     from enerf_torch.ops import fused_mlp
     from enerf_torch.parallel import mesh as dp
-    from enerf_torch.render.occupancy import GRID_SIZE, update_occupancy, update_occupancy_sharded
+    from enerf_torch.render.occupancy import (
+        GRID_SIZE, clone_occupancy, update_occupancy, update_occupancy_sharded,
+    )
     from enerf_torch.train.state import TrainState
     from enerf_torch.train.step import draw_noise, train_step_events
     from enerf_torch.train.trainer import Trainer
@@ -2296,12 +2728,14 @@ def dp_compare(mesh, cfg, workspace):
     kw = dict(density_scale=cfg.density_scale, density_thresh=cfg.density_thresh)
     torch.cuda.synchronize()
     t0 = time.time()
-    occ = update_occupancy_sharded(trainer.state.params, static, occ0, mesh=mesh,
-                                   noise=jitter, **kw)
+    # the update writes in place: each side on a copy of the initial state
+    occ = update_occupancy_sharded(trainer.state.params, static, clone_occupancy(occ0),
+                                   mesh=mesh, noise=jitter, **kw)
     torch.cuda.synchronize()
     t_sharded = time.time() - t0
     t0 = time.time()
-    serial = update_occupancy(trainer.state.params, static, occ0, noise=jitter, **kw)
+    serial = update_occupancy(trainer.state.params, static, clone_occupancy(occ0),
+                              noise=jitter, **kw)
     torch.cuda.synchronize()
     t_serial = time.time() - t0
     occ_equal = (torch.equal(occ.density_grid, serial.density_grid)
@@ -2387,6 +2821,56 @@ def phase_dp_nccl(workspace):
     return r
 
 
+def dp_window_case(mesh, workspace, C_thres):
+    """The data-parallel window (train/chunk.py under a mesh) on this rank:
+    the provider's batch is the config's whole batch; one window step on
+    this rank's batch and noise (its own generator) against one process's
+    loss on that batch alone and on every rank's batches concatenated (the
+    ranks' draws gathered); then one epoch of 20 steps through
+    Trainer.train, rounded down to one 16-step window."""
+    import torch
+    from enerf_torch.data.provider import make_providers
+    from enerf_torch.parallel import mesh as dp
+    from enerf_torch.parallel.multihost import gather_rows
+    from enerf_torch.render.occupancy import update_occupancy_sharded
+    from enerf_torch.train.step import event_loss_fn, step_noise
+    from enerf_torch.train.trainer import Trainer
+
+    cfg = smoke_config(workspace, "--C_thres", str(C_thres))
+    trainer = Trainer(cfg, workspace=workspace, mesh=mesh)
+    train, _ = make_providers(cfg, device=mesh.device, shards=mesh.world_size)
+    ss, gen = trainer.ss, trainer.rank_generator
+    trainer.occupancy = update_occupancy_sharded(
+        trainer.state.params, trainer.static, trainer.occupancy, trainer.generator, gen,
+        mesh=mesh, density_scale=cfg.density_scale, density_thresh=cfg.density_thresh)
+    bits = trainer.occupancy.occ_packed
+    batch = train.train_step_batch(gen)
+    noise = step_noise(ss, batch, gen)
+    N = batch["pols"].shape[0]
+    with torch.no_grad():
+        own = float(event_loss_fn(trainer.state.params, ss, batch, noise, bits)[0])
+        everyone = {k: gather_rows(v.contiguous(), mesh.group) for k, v in batch.items()}
+        noise_all = {k: gather_rows((v.expand(N, -1) if k == "bg" else v).contiguous(),
+                                    mesh.group) for k, v in noise.items()}
+        concat = float(event_loss_fn(trainer.state.params, ss, everyone, noise_all, bits)[0])
+    out = dp.make_window_step(ss, mesh)(trainer.state, batch, bits, gen, noise=noise)
+    rank_loss = float(out["loss"])
+    mean_loss = float(dp.global_means({"loss": out["loss"]}, mesh)["loss"])
+    dp.assert_replicated(trainer.state, trainer.occupancy, mesh)
+    train.steps_per_epoch = 20
+    step0, t0 = trainer.state.step, time.time()
+    trainer.train(train, None, max_epoch=1)  # checks the ranks bit-equal at its end
+    window_s = trainer._clock() - t0
+    rounded = None  # rank 0 writes the log
+    if mesh.rank == 0:
+        with open(trainer.log_path) as f:
+            rounded = "rounded down to 16" in f.read()
+    return dict(C_thres=C_thres, pairs_rank=N, config_pairs=cfg.batch_size_evs,
+                rank_loss=rank_loss, own_loss=own, mean_loss=mean_loss, concat_loss=concat,
+                steps=trainer.state.step - step0, window_s=window_s, rounded_logged=rounded,
+                losses=[aux["loss"] for _, aux in trainer.history])
+
+
 def dp_rank_main_path(mesh, workspace, out_dir):
     """Phase 23 (a) and (c) on one rank: dp_compare, then one validation view
     through make_sharded_render against render_rays_march of the whole view
@@ -2399,11 +2883,14 @@ def dp_rank_main_path(mesh, workspace, out_dir):
 
     torch.backends.cuda.matmul.allow_tf32 = False  # as in this script's main()
     torch.backends.cudnn.allow_tf32 = False
-    cfg = smoke_config(workspace)
+    cfg = smoke_config(workspace, "--fuse_steps", "1")  # the per-step path's split batch
     trainer, val, r = dp_compare(mesh, cfg, workspace)
     # the normalized event loss, whose norm crosses the ranks
     ws = os.path.join(workspace, "norm")
-    r["norm"] = dp_compare(mesh, smoke_config(ws, "--C_thres", "-1"), ws)[2]
+    r["norm"] = dp_compare(mesh, smoke_config(ws, "--C_thres", "-1", "--fuse_steps", "1"),
+                           ws)[2]
+    r["window"] = [dp_window_case(mesh, os.path.join(workspace, f"window{c}"), c)
+                   for c in (0.2, -1)]
     v = val.val_views()[0]
     fused_mlp.fused_field_head.launches = 0
     torch.cuda.synchronize()
@@ -2440,8 +2927,10 @@ def dp_rank_sparse(mesh, datadir, workspace, extra, steps, out_dir):
 
     torch.backends.cuda.matmul.allow_tf32 = False  # as in this script's main()
     torch.backends.cudnn.allow_tf32 = False
+    # the per-step path (--fuse_steps 1): the config's batch split over the
+    # ranks, the normalized loss's global norm
     cfg = esim_config("spiral1_sparse/spiral1_sparse_enerf.txt", datadir, workspace,
-                      "--iters", str(steps), *extra)
+                      "--iters", str(steps), "--fuse_steps", "1", *extra)
     trainer = Trainer(cfg, workspace=workspace, mesh=mesh)
     train, _ = make_providers(cfg, get_select_frames(cfg), device=mesh.device,
                               shards=mesh.world_size)
@@ -2508,6 +2997,28 @@ def phase_dp_gloo(workspace, datadir):
         dp_check("dp-gloo", x["norm"], 1e-5)
     if not (r["view_err"] <= 1e-5 and r["view_finite"]):
         raise AssertionError(f"[dp-gloo] the sharded view disagrees: {r['view_err']}")
+    for w0, w1 in zip(ranks[0]["window"], ranks[1]["window"]):
+        rel_mean = abs(w0["mean_loss"] - w0["concat_loss"]) / abs(w0["concat_loss"])
+        rel_own = [abs(w["rank_loss"] - w["own_loss"]) / abs(w["own_loss"]) for w in (w0, w1)]
+        print(f"[dp-gloo] (d) the data-parallel window, C_thres {w0['C_thres']}: each rank "
+              f"draws the config's {w0['config_pairs']} pairs "
+              f"({[w0['pairs_rank'], w1['pairs_rank']]}); rank losses "
+              f"{[w0['rank_loss'], w1['rank_loss']]}, their mean {w0['mean_loss']:.7f} vs one "
+              f"process's on both batches concatenated {w0['concat_loss']:.7f} (rel "
+              f"{rel_mean:.2e}), each rank's vs one process's on its batch alone (rel "
+              f"{[f'{x:.2e}' for x in rel_own]}); then a 20-step epoch -> "
+              f"{[w0['steps'], w1['steps']]} steps, the rounding logged "
+              f"{w0['rounded_logged']}, window {w0['window_s']:.2f} s (eager under a mesh), the "
+              f"ranks bit-equal, window losses {w0['losses']}")
+        ok = (w0["pairs_rank"] == w1["pairs_rank"] == w0["config_pairs"]
+              and w0["steps"] == w1["steps"] == 16 and w0["rounded_logged"]
+              and w0["losses"] == w1["losses"])
+        if w0["C_thres"] == -1:  # normalized per rank, as JAX's chunk does
+            ok = ok and max(rel_own) <= 1e-6 and rel_mean > 1e-6
+        else:
+            ok = ok and rel_mean <= 1e-6
+        if not ok:
+            raise AssertionError(f"[dp-gloo] the data-parallel window disagrees: {w0}, {w1}")
 
     steps, sparse = 4, None
     for label, extra in (("as published", ()), ("with --remat_fixed 1", ("--remat_fixed", "1"))):
@@ -2534,7 +3045,7 @@ def phase_dp_gloo(workspace, datadir):
           f"{[round(a, 2) for a in ar]} ms a step (per rank; the first step included: "
           f"{[[round(v, 2) for v in x['allreduce_ms']] for x in sparse]}); replication check "
           f"{s['replication_check_s']:.2f} s, the ranks agree; losses "
-          f"{[round(v, 6) for v in s['losses']]}; K1 / K2 / K3 launches {s['launches']} "
+          f"{[round(v, 6) for v in s['losses']]}; K1 / K2 / K3 / M1 launches {s['launches']} "
           f"({time.time() - t0:.1f} s with the start)")
     if sparse[0]["losses"] != sparse[1]["losses"]:
         raise AssertionError("the ranks logged different global losses")
@@ -2568,12 +3079,18 @@ def main():
         k3 = phase_k3_kernel()
         k3_launches = phase_gather_bench()
         workspace = os.path.join(REPO, "build", "chip_smoke")
-        trainer, train, val, launches = phase_main_path(workspace)
+        trainer, train, val, launches, m1_launches = phase_main_path(workspace)
         phase_resume(trainer, workspace)
-        phase_inference(trainer, val)
+        m1_infer = phase_inference(trainer, val)
         phase_breakdown(trainer, train)
         phase_mesh("main", trainer, check=True)
+        m1 = phase_march_kernel(trainer, train)
+        window = phase_window(trainer, train)
         del trainer, train, val
+        gc.collect()  # a trainer's captured graph holds its memory pool
+        torch.cuda.empty_cache()
+        print(f"[memory] after the main path: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
         k2_launches, k2_on_path = phase_k2_path()
         phase_no_event(os.path.join(REPO, "build", "chip_smoke_noev"))
         workspace = os.path.join(REPO, "build", "chip_smoke_default")
@@ -2582,12 +3099,18 @@ def main():
         phase_default_breakdown(trainer, train)
         k1_viewer = phase_viewer(trainer, train, workspace)
         del trainer, train
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[memory] after the default path: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
         phase_cli(workspace)
         phase_lpips()
         phase_march_warmup(os.path.join(REPO, "build", "chip_smoke_warmup"))
         datadir, carpet, esim_data = phase_esim_fixture(
             os.path.join(REPO, "build", "chip_smoke_esim"))
-        phase_esim_frames(datadir, os.path.join(REPO, "build", "chip_smoke_spiral1"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        spiral1 = phase_esim_frames(datadir, os.path.join(REPO, "build", "chip_smoke_spiral1"))
         gc.collect()
         torch.cuda.empty_cache()
         phase_esim_events(carpet, os.path.join(REPO, "build", "chip_smoke_carpet"))
@@ -2597,8 +3120,8 @@ def main():
         tumvie_dir = phase_tumvie_fixture(os.path.join(REPO, "build", "chip_smoke_tumvie"))
         gc.collect()
         torch.cuda.empty_cache()
-        phase_stereo("tumvie", "mocapDesk2/mocapDesk2_enerf.txt", tumvie_dir,
-                     os.path.join(REPO, "build", "chip_smoke_mocapdesk2"), steps=8)
+        mocap = phase_stereo("tumvie", "mocapDesk2/mocapDesk2_enerf.txt", tumvie_dir,
+                             os.path.join(REPO, "build", "chip_smoke_mocapdesk2"), steps=16)
         gc.collect()
         torch.cuda.empty_cache()
         eds_dir = phase_eds_fixture(esim_data, os.path.join(REPO, "build", "chip_smoke_eds"))
@@ -2654,6 +3177,16 @@ def main():
             "source": "enerf_torch/csrc/group_gather.cu",
             "replaces": "scripts/bench_gather.py:62",
             "launches": k3_launches}, **k3[128], block_grid_table=k3[250]),
+        dict({
+            "name": "march_rays", "route": "cuda",
+            "source": "enerf_torch/csrc/march_rays.cu",
+            # a device loop of the JAX package (lax.while_loop in lax.scan),
+            # not a Pallas kernel
+            "replaces": "enerf_tpu/render/march.py:51",
+            "launches": m1_launches}, **m1["main"], bench=m1["bench"],
+            bench_dt_gamma=m1["bench_dt_gamma"], infer_first_window=m1_infer["first"],
+            infer_last_window=m1_infer["last"], window=window, spiral1_window=spiral1,
+            mocapdesk2_window=mocap),
     ]}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,12 @@ Data parallelism (main.py:73-84), train, test and mesh on every rank, the
 files written by rank 0:
   - `--mesh_shape N` (the product of the list) starts N ranks on this host
     with torch.multiprocessing (spawn), on cuda:0..N-1 over NCCL, or with
-    `--device cpu` on the CPU over gloo.  The config's batch is the global
-    batch: each rank samples 1/N of it.  More ranks than cards raises; two
-    ranks never share a card here.
+    `--device cpu` on the CPU over gloo.  With `--fuse_steps 1` the
+    config's batch is the global batch: each rank samples 1/N of it.  With
+    the default fuse_steps (16) the ranks train in windows, as JAX's chunk
+    does: each rank samples the config's batch and normalizes its loss over
+    it, and an epoch is rounded down to whole windows.  More ranks than
+    cards raises; two ranks never share a card here.
   - `--multihost 1` joins the job torchrun started, one rank per process
     on cuda:LOCAL_RANK (or the CPU): each rank samples the config's batch,
     so the global batch is their sum.  Without torchrun's environment it
@@ -94,7 +97,7 @@ def main(argv=None):
 
 
 def run_rank(mesh, cfg):
-    """One rank of --mesh_shape: the config's batch is the global batch."""
+    """One rank of --mesh_shape (the provider's batch: make_providers)."""
     run(cfg, mesh=mesh, shards=mesh.world_size)
 
 

@@ -7,7 +7,7 @@ select TPU variants or TPU dispatch machinery (accepted, ignored by the
 port), and `check_supported` raises on options whose code path the port
 does not have yet.  `mesh_shape` and `multihost` select the port's data
 parallelism over torch.distributed (enerf_torch/__main__.py,
-parallel/mesh.py).
+parallel/mesh.py), `fuse_steps` its training window (train/chunk.py).
 """
 
 import argparse
@@ -118,7 +118,7 @@ class Config:
                                 # high-contrast blobs, 2 = + textured
                                 # albedo/floor (events then constrain most
                                 # pixels, like the reference's real scenes)
-    fuse_steps: int = 16        # train steps fused into one XLA program
+    fuse_steps: int = 16        # train steps per window (train/chunk.py)
                                 # (matches the 16-step occupancy cadence;
                                 # 1 = dispatch per step)
     grid_block: int = 4         # blockgrid row geometry (4: 1KB rows with
@@ -286,15 +286,14 @@ class Config:
 
 # TPU variants of one function or TPU dispatch machinery: configs keep
 # parsing, the port runs its single implementation and logs that it
-# ignored them (train/trainer.py).  fuse_steps fuses K steps into one XLA
-# program (train/chunk.py); its CUDA counterpart would be a CUDA graph of K
-# steps, which the port's host-synced march cannot be captured in, so the
-# port dispatches one step at a time.  position_grads selects the position
+# ignored them (train/trainer.py).  position_grads selects the position
 # gradients of JAX's segsum table backward (segsum_grad's compute_dx), a
 # TPU variant; the port's plain encoders give dL/dx whenever x needs a
 # gradient, as JAX's plain hash_encode / block_encode do, and the K2 route
-# gives zero, as JAX's block_encode_fast does.
-TPU_ONLY = ("fuse_steps", "bf16_gather", "segsum_grad", "mxu_grad", "mxu_rows",
+# gives zero, as JAX's block_encode_fast does.  fuse_steps is not among
+# them: it selects the port's training window (train/chunk.py), K steps
+# replayed as a CUDA graph on a card, as JAX fuses them into one program.
+TPU_ONLY = ("bf16_gather", "segsum_grad", "mxu_grad", "mxu_rows",
             "coalesce_rounds", "position_grads")
 
 

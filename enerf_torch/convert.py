@@ -11,7 +11,7 @@ needs nothing of JAX.
 import numpy as np
 import torch
 
-from enerf_torch.render.occupancy import OccupancyState
+from enerf_torch.render.occupancy import occupancy_state
 from enerf_torch.train.clip_guidance import StubEmbedder
 
 
@@ -22,8 +22,9 @@ def params_from_jax(params_np, device="cpu"):
 
 def occupancy_from_jax(density_grid, occ_bitfield, mean_density, iter_density,
                        device="cpu"):
-    """The four OccupancyState fields (numpy) -> the port's OccupancyState."""
-    return OccupancyState(
+    """The four OccupancyState fields (numpy) -> the port's OccupancyState
+    (its packed bitfield made from them)."""
+    return occupancy_state(
         density_grid=torch.tensor(np.asarray(density_grid, np.float32), device=device),
         occ_bitfield=torch.tensor(np.asarray(occ_bitfield, bool), device=device),
         mean_density=torch.tensor(np.asarray(mean_density, np.float32), device=device),

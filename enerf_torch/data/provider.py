@@ -390,7 +390,7 @@ class FramesProvider:
         if self.error_map is None:
             return
         rows, ic = cells if cells is not None else self.error_map_cells()
-        n = self._last_inds_coarse.shape[0]
+        n = self.num_rays  # one rank's block
         loss = per_ray_loss.detach()
         for s in range(0, ic.shape[0], n):
             r, c = rows[s:s + n], ic[s:s + n]
@@ -591,10 +591,13 @@ def make_providers(cfg, select_frames=None, device=None, shards=1):
     batch of that many data-parallel ranks (--mesh_shape), so the train
     provider samples batch_size_evs / shards event pairs (and their
     no-event pairs) and num_rays / shards frame rays; a split that is not
-    even raises."""
+    even raises.  That split is the per-step path's (fuse_steps 1): with
+    fuse_steps > 1 the ranks train in windows (train/chunk.py), where each
+    rank samples the config's whole batch, as each chip does in JAX's
+    chunk."""
     device = resolve_device(device)
     batch_size_evs, num_rays = cfg.batch_size_evs, cfg.num_rays
-    if shards > 1:
+    if shards > 1 and cfg.fuse_steps <= 1:
         split = {}  # what the train provider samples
         if cfg.events:
             split["batch_size_evs"] = batch_size_evs

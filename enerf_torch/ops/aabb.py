@@ -6,6 +6,8 @@ package, a box entirely behind the ray origin (far < min_near) is a miss.
 `polar_from_ray` addresses the background net (bg_radius > 0).
 """
 
+import functools
+
 import torch
 
 # FLT_MAX, matches the CUDA reference and enerf_tpu's _MISS
@@ -28,9 +30,17 @@ def near_far_from_aabb(rays_o, rays_d, aabb, min_near=0.2):
     return torch.where(miss, miss_val, near), torch.where(miss, miss_val, far)
 
 
+@functools.lru_cache(maxsize=None)
+def _aabb(bound, device):
+    return torch.tensor([-bound, -bound, -bound, bound, bound, bound], dtype=torch.float32,
+                        device=device)
+
+
 def aabb_tensor(bound, device):
-    b = float(bound)
-    return torch.tensor([-b, -b, -b, b, b, b], dtype=torch.float32, device=device)
+    """The [-bound, bound]^3 box as [6] f32 on `device`, made once per
+    (bound, device): a copy from the host inside a training step would sync
+    with it, which a captured CUDA graph cannot do.  Read-only."""
+    return _aabb(float(bound), torch.device(device))
 
 
 def polar_from_ray(rays_o, rays_d, radius):

@@ -6,19 +6,45 @@ Counterpart of enerf_tpu/ops/composite.py (reference renderer.py:230-265):
   weight_i = alpha_i * T_i
   image    = sum_i w_i rgb_i + (1 - sum_i w_i) * bg
   depth    = sum_i w_i * clip((z_i - near) / (far - near), 0, 1)
-The backward is autograd's, through the exclusive cumulative product.
+The backward is autograd's, through the exclusive cumulative product
+(`transmittance`, whose backward reads no host value).
 """
 
 import torch
+
+
+class _Cumprod(torch.autograd.Function):
+    """torch.cumprod along the last dim, with a backward that reads no host
+    value.  Autograd's cumprod backward asks the host whether the input
+    holds a zero (one .item() a call), which a step captured in a CUDA
+    graph cannot do.  A transmittance's factors 1 - alpha + 1e-15 are never
+    zero (1e-15 at the least), and for such inputs autograd's backward is
+    reversed_cumsum(out * grad) / input: this is that formula, bit for
+    bit."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, -1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
+def transmittance(one_m):
+    """[..., T] factors 1 - alpha + 1e-15 -> the exclusive product
+    T_i = prod_{j<i} one_m_j, [..., T]."""
+    return _Cumprod.apply(torch.cat([torch.ones_like(one_m[..., :1]), one_m[..., :-1]], -1))
 
 
 def composite_weights(sigmas, deltas, density_scale=1.0):
     """sigmas, deltas [N, T] -> (weights [N, T], alphas [N, T])."""
     alphas = 1.0 - torch.exp(-deltas * density_scale * sigmas)
     one_m = 1.0 - alphas + 1e-15
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(one_m[..., :1]), one_m[..., :-1]], -1), -1)
-    return alphas * trans, alphas
+    return alphas * transmittance(one_m), alphas
 
 
 def composite_rays(sigmas, rgbs, deltas, z_vals, nears, fars, bg_color, density_scale=1.0):

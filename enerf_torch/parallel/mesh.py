@@ -15,6 +15,11 @@ batch:
     all_reduce of every gradient divided by the world size (the psum of the
     global mean), then Adam + EMA on every rank, which stay bitwise
     replicated because every rank applies the same reduced gradient;
+  - `make_window_step` and `merge_error_map`: the data-parallel step of a
+    training window (train/chunk.py, JAX's chunk under shard_map): each
+    rank samples the config's whole batch and normalizes its loss over it
+    alone, the gradient is the ranks' mean, and the error map's per-rank
+    updates merge once, at the window's end;
   - `make_sharded_render`: the eval rays split over the ranks, rendered
     with `render_rays_march`, gathered and cropped (`shard_rays`);
   - `spawn`: len(devices) processes of this host joined through a file://
@@ -110,18 +115,19 @@ def shard_batch(batch, mesh):
 
 def replicated_tensors(state, occupancy=None):
     """Every tensor the ranks keep replicated, by name, in one order: params,
-    EMA, Adam's moments (once they exist), the occupancy grid."""
-    out = {}
+    EMA, Adam's moments and the update count, the occupancy grid (and its
+    packed words)."""
+    out = {"count": state.count}
     for k, p in state.params.items():
         out[f"params/{k}"] = p.data
         out[f"ema/{k}"] = state.ema_params[k]
-        for m, v in state.opt.state.get(p, {}).items():
-            if m != "step":  # a host count, equal by construction
-                out[f"adam/{m}/{k}"] = v
+        out[f"adam/exp_avg/{k}"] = state.exp_avg[k]
+        out[f"adam/exp_avg_sq/{k}"] = state.exp_avg_sq[k]
     if occupancy is not None:
         out["occupancy/density_grid"] = occupancy.density_grid
         out["occupancy/occ_bitfield"] = occupancy.occ_bitfield
         out["occupancy/mean_density"] = occupancy.mean_density
+        out["occupancy/occ_packed"] = occupancy.occ_packed
     return out
 
 
@@ -205,6 +211,45 @@ def make_sharded_train_step(ss, mesh, mode="events"):
         return out
 
     return step
+
+
+def make_window_step(ss, mesh, mode="events"):
+    """The data-parallel step inside a training window (enerf_tpu's
+    make_train_chunk under shard_map): step(state, batch, occ, generator,
+    noise=None) -> this rank's loss terms, with `batch` this rank's own
+    batch at the config's full size and its noise drawn from `generator`,
+    the rank's own (JAX folds the rank into the step's key).  Each rank's loss is
+    normalized over its own batch (no global norm: JAX's chunk normalizes
+    per chip); the gradients are mean-all_reduced, then Adam + EMA."""
+    if mode not in ("events", "frames"):
+        raise ValueError(f"mode {mode!r}")
+    loss_fn = event_loss_fn if mode == "events" else frames_loss_fn
+
+    def step(state, batch, occ, generator, noise=None):
+        if noise is None:
+            noise = step_noise(ss, batch, generator, mode)
+        state.zero_grad()
+        loss, aux = loss_fn(state.params, ss, batch, noise, occ)
+        loss.backward()
+        all_reduce_grads(state.params.values(), mesh)
+        state.apply_updates()
+        out = {"loss": loss.detach()}
+        out.update((k, v.detach()) for k, v in aux.items())
+        return out
+
+    return step
+
+
+@torch.no_grad()
+def merge_error_map(base, error_map, mesh):
+    """The error map after a data-parallel window, in place on `error_map`:
+    base + the sum of every rank's delta from `base`, floored at 1e-4 (two
+    ranks' negative deltas on one cell can overshoot below zero, and the
+    next window samples the map log-categorically; JAX's chunk.py:138-146)."""
+    delta = error_map - base
+    dist.all_reduce(delta, group=mesh.group)
+    torch.clamp(base + delta, min=1e-4, out=error_map)
+    return error_map
 
 
 @torch.no_grad()

@@ -9,19 +9,32 @@ and renderer.py:281-401):
     4^3 superblock) boundary, quantized to dt steps
 Samples fill a fixed [N, S] buffer with a validity mask.
 
-The JAX while_loops become Python loops that stop once no ray is active:
-each skip iteration and each inference window costs one `.any().item()`
-host sync.  `march_rays.host_syncs` counts them.
+The march runs as kernel M1 (csrc/march_rays.cu) on CUDA tensors: one
+thread per ray walks JAX's while_loop of skips inside its scan of emission
+blocks in registers, with no host sync, so a training step can be
+captured in a CUDA graph.  On CPU tensors it runs the plain version
+`_march`, Python loops over the whole batch that stop once no ray is
+active: each skip iteration costs one host sync (which also counts the
+lookups it makes, `march_rays.lookups`).  The march reads the bitfield
+packed into 32-bit words (occupancy.pack_bitfield), which the occupancy
+update keeps beside the bool bitfield; given the bool bitfield, the march
+packs it per call.
+`march_rays.launches` counts M1's launches, `march_rays.host_syncs` the
+syncs of the plain version's loops and of the inference renderer's
+windows.
 """
 
+import ctypes
+
+import numpy as np
 import torch
 
 from enerf_torch.models.field import background, field_forward, field_forward_fused
 from enerf_torch.ops.aabb import aabb_tensor, near_far_from_aabb
-from enerf_torch.render.occupancy import GRID_SIZE
+from enerf_torch.ops.composite import transmittance
+from enerf_torch.render.occupancy import GRID_SIZE, SUPER, pack_bitfield
 
 SQRT3 = 1.7320508075688772
-SUPER = 4  # cells per superblock dim (two-level empty-space skip)
 SKIP_ITERS = 64  # empty-space jumps per emitted sample block, at most
 
 
@@ -32,15 +45,16 @@ def _mip_from_val(v, cascades):
     return exp.clamp(0, cascades - 1).to(torch.int64)
 
 
-def pack_bitfield(occ_bitfield):
-    """[CAS, H^3] bool -> [CAS * (H/4)^3, 2] int64: each 4^3 superblock's 64
-    cell bits as two 32-bit words (low word: cells 0..31)."""
-    H, HS = GRID_SIZE, GRID_SIZE // SUPER
-    cas = occ_bitfield.shape[0]
-    occ3 = occ_bitfield.reshape(cas, HS, SUPER, HS, SUPER, HS, SUPER)
-    cells = occ3.permute(0, 1, 3, 5, 2, 4, 6).reshape(-1, 2, 32).to(torch.int64)
-    shifts = torch.arange(32, device=cells.device, dtype=torch.int64)
-    return (cells << shifts).sum(-1)
+def num_cascades_of(occ):
+    """The cascades of a bitfield: bool [CAS, H^3] or packed [CAS * (H/4)^3, 2]."""
+    if occ.dtype == torch.bool:
+        return occ.shape[0]
+    return occ.shape[0] // (GRID_SIZE // SUPER) ** 3
+
+
+def packed_bits(occ):
+    """The packed bitfield of `occ` (packed now if it is the bool one)."""
+    return pack_bitfield(occ) if occ.dtype == torch.bool else occ
 
 
 def emit_k(max_steps):
@@ -48,9 +62,10 @@ def emit_k(max_steps):
     return max(1, min(4, int(round(max_steps / (SQRT3 * GRID_SIZE)))))
 
 
-def _any(mask):
+def _count(mask):
+    """The set entries of `mask`: one host sync, counted."""
     march_rays.host_syncs += 1
-    return bool(mask.any().item())
+    return int(mask.sum().item())
 
 
 def _march(rays_o, rays_d, occ_packed, nears, fars, t0, *, num_samples,
@@ -101,8 +116,10 @@ def _march(rays_o, rays_d, occ_packed, nears, fars, t0, *, num_samples,
         ttf = t
         for _ in range(SKIP_ITERS):
             is_live = live & (t < fars) & ~found
-            if not _any(is_live):
+            active = _count(is_live)
+            if not active:
                 break
+            march_rays.lookups += active
             occ, dt, tt = lookup(t)
             emit = is_live & occ
             dtf = torch.where(emit, dt, dtf)
@@ -148,13 +165,84 @@ def _march(rays_o, rays_d, occ_packed, nears, fars, t0, *, num_samples,
     return (torch.stack(ts, 1), torch.stack(dts, 1), torch.stack(valid, 1), t)
 
 
+def _lib():
+    from enerf_torch.ops.cuda_build import load_library
+    fn = load_library("march_rays").march_rays_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_kernel(rays_o, rays_d, occ_packed, nears, fars, t0, *, num_samples, max_steps,
+                  cascades, bound, dt_gamma):
+    """Launch M1 on CUDA tensors -> (ts, dts [N, S] f32, valid [N, S] bool,
+    t_end [N] f32), what `_march` returns on the same inputs.  rays [N, 3],
+    nears / fars / t0 [N] f32; occ_packed [CAS * (H/4)^3, 2] int32."""
+    N = rays_o.shape[0]
+    dev = rays_o.device
+    f32 = [rays_o, rays_d, nears, fars, t0]
+    if not all(x.is_cuda and x.device == dev and x.dtype == torch.float32 for x in f32):
+        raise ValueError("the march kernel takes float32 rays, nears, fars and t0 on one "
+                         "CUDA device")
+    if rays_o.shape != (N, 3) or rays_d.shape != (N, 3) or any(
+            x.shape != (N,) for x in (nears, fars, t0)):
+        raise ValueError(f"the march kernel takes rays [N, 3] and nears / fars / t0 [N], got "
+                         f"{[tuple(x.shape) for x in f32]}")
+    HS = GRID_SIZE // SUPER
+    if (occ_packed.dtype != torch.int32 or occ_packed.device != dev
+            or occ_packed.shape != (cascades * HS ** 3, 2) or not occ_packed.is_contiguous()):
+        raise ValueError(f"the march kernel takes the packed bitfield [{cascades} * {HS}^3, 2] "
+                         f"int32 on the rays' device, got {tuple(occ_packed.shape)} "
+                         f"{occ_packed.dtype} on {occ_packed.device}")
+    rays_o, rays_d, nears, fars, t0 = (x.contiguous() for x in f32)
+    ts = torch.empty(N, num_samples, device=dev)
+    dts = torch.empty(N, num_samples, device=dev)
+    valid = torch.empty(N, num_samples, dtype=torch.bool, device=dev)
+    t_end = torch.empty(N, device=dev)
+    dt_min = np.float32(2.0 * SQRT3 / max_steps)
+    dt_max = np.float32(2.0 * SQRT3 * (2 ** (cascades - 1)) / GRID_SIZE)
+    k = emit_k(max_steps) if dt_gamma == 0.0 else 1
+    fn = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(rays_o.data_ptr(), rays_d.data_ptr(), occ_packed.data_ptr(),
+                 nears.data_ptr(), fars.data_ptr(), t0.data_ptr(), ts.data_ptr(),
+                 dts.data_ptr(), valid.data_ptr(), t_end.data_ptr(), N, num_samples, k,
+                 int(dt_gamma == 0.0), cascades, float(dt_min), float(dt_max),
+                 float(np.float32(dt_gamma)), float(np.float32(bound)),
+                 # ATen divides by a Python scalar as a product with its float
+                 # reciprocal, computed on the host in float32
+                 float(np.float32(1.0) / dt_min),
+                 float(np.float32(1.0) / np.float32(GRID_SIZE - 1)), stream)
+    if err != 0:
+        raise RuntimeError(f"march kernel launch failed: cudaError {err}")
+    march_rays.launches += 1
+    return ts, dts, valid, t_end
+
+
+def march(rays_o, rays_d, occ, nears, fars, t0, *, num_samples, max_steps, cascades, bound,
+          dt_gamma):
+    """(ts, dts, valid, t_end) of the march from t0: M1 on CUDA tensors, the
+    plain version `_march` on CPU tensors.  occ: the bool or the packed
+    bitfield."""
+    kw = dict(num_samples=num_samples, max_steps=max_steps, cascades=cascades, bound=bound,
+              dt_gamma=dt_gamma)
+    if rays_o.is_cuda:
+        return launch_kernel(rays_o, rays_d, packed_bits(occ), nears, fars, t0, **kw)
+    return _march(rays_o, rays_d, packed_bits(occ), nears, fars, t0, **kw)
+
+
 @torch.no_grad()
 def march_rays(rays_o, rays_d, occ_bitfield, nears, fars, *, jitter=None,
                num_samples=64, max_steps=1024, cascades=1, bound=1.0,
                dt_gamma=0.0, perturb=False):
-    """March N rays through the occupancy grid.
+    """March N rays through the occupancy grid: kernel M1 on CUDA tensors,
+    the plain version on CPU tensors.
 
-    rays_o, rays_d: [N, 3]; occ_bitfield: [CAS, H^3] bool; nears, fars: [N]
+    rays_o, rays_d: [N, 3]; occ_bitfield: [CAS, H^3] bool, or packed
+    [CAS * (H/4)^3, 2] int32 (occupancy.pack_bitfield); nears, fars: [N]
     (FLT_MAX for misses).  With perturb, each ray's start moves by
     dt_min * jitter, jitter [N] in [0, 1) (the caller's random draw).
 
@@ -163,14 +251,15 @@ def march_rays(rays_o, rays_d, occ_bitfield, nears, fars, *, jitter=None,
     t0 = nears
     if perturb:
         t0 = nears + (2.0 * SQRT3 / max_steps) * jitter
-    ts, dts, valid, _ = _march(
-        rays_o, rays_d, pack_bitfield(occ_bitfield), nears, fars, t0,
-        num_samples=num_samples, max_steps=max_steps, cascades=cascades,
-        bound=bound, dt_gamma=dt_gamma)
+    ts, dts, valid, _ = march(
+        rays_o, rays_d, occ_bitfield, nears, fars, t0, num_samples=num_samples,
+        max_steps=max_steps, cascades=cascades, bound=bound, dt_gamma=dt_gamma)
     return ts, dts, valid
 
 
-march_rays.host_syncs = 0  # `.any().item()` syncs taken by march loops
+march_rays.launches = 0    # M1 launches (CUDA path only)
+march_rays.host_syncs = 0  # host syncs: the plain version's skips, the infer windows
+march_rays.lookups = 0     # the plain version's (ray, lookup) pairs: M1's operation count
 
 
 def _field_fn(static):
@@ -208,10 +297,7 @@ def composite_from_march(params, static, rays_o, rays_d, ts, dts, valid, nears,
     rgbs = rgbs.reshape(N, num_samples, C)
 
     alphas = 1.0 - torch.exp(-dts * density_scale * sigmas)
-    one_m = 1.0 - alphas + 1e-15
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(one_m[..., :1]), one_m[..., :-1]], -1), -1)
-    weights = alphas * trans
+    weights = alphas * transmittance(1.0 - alphas + 1e-15)
     weights_sum = weights.sum(-1)
     depth_t = (weights * ts).sum(-1)
     bg = background(params, static, rays_o, rays_d, bg_color, C)
@@ -237,7 +323,7 @@ def render_rays_march(params, static, occ_bitfield, rays_o, rays_d, *,
     ts, dts, valid = march_rays(
         rays_o, rays_d, occ_bitfield, nears, fars, jitter=jitter,
         num_samples=num_samples, max_steps=max_steps,
-        cascades=occ_bitfield.shape[0], bound=static.bound, dt_gamma=dt_gamma,
+        cascades=num_cascades_of(occ_bitfield), bound=static.bound, dt_gamma=dt_gamma,
         perturb=perturb)
     return composite_from_march(
         params, static, rays_o, rays_d, ts, dts, valid, nears, fars,
@@ -251,17 +337,23 @@ def render_rays_infer(params, static, occ_bitfield, rays_o, rays_d, *,
                       density_scale=1.0, dt_gamma=0.0, occ_packed=None):
     """Alive-ray inference renderer (reference raymarching.cu:701-938,
     renderer.py:344-401): march the alive rays one [N, block] window at a
-    time, composite incrementally, retire a ray once its transmittance drops
-    below 1e-4, stop when every ray is dead (one host sync per window); then
-    what is left transmitted shows bg_color, or the background net's colour.
+    time (one march launch a window: M1 on CUDA tensors), composite
+    incrementally, retire a ray once its transmittance drops below 1e-4,
+    stop when every ray is dead; then what is left transmitted shows
+    bg_color, or the background net's colour.  The check whether any ray
+    is alive is this renderer's one host sync a window (counted in
+    march_rays.host_syncs), at most max_iters = ceil(max_steps / block)
+    windows (64 at the defaults) a call; JAX's while_loop makes that check
+    on the device.  occ_bitfield: bool or packed; occ_packed: its packed
+    words, when the caller keeps them.
     Returns dict(image=[N, C], depth=[N], weights_sum=[N])."""
     N = rays_o.shape[0]
     dev = rays_o.device
-    cascades = occ_bitfield.shape[0]
+    cascades = num_cascades_of(occ_bitfield)
     nears, fars = near_far_from_aabb(rays_o, rays_d,
                                      aabb_tensor(static.bound, dev), min_near)
     if occ_packed is None:
-        occ_packed = pack_bitfield(occ_bitfield)
+        occ_packed = packed_bits(occ_bitfield)
     k = 1 if dt_gamma != 0.0 else emit_k(max_steps)
     B = max(1, -(-block // k)) * k  # whole emission blocks: no gaps
     max_iters = -(-max_steps // B)
@@ -274,11 +366,11 @@ def render_rays_infer(params, static, occ_bitfield, rays_o, rays_d, *,
     dep = torch.zeros(N, device=dev)
     for _ in range(max_iters):
         live = (T > 1e-4) & (t < fars)
-        if not _any(live):
+        if not _count(live):
             break
         # dead rays start at/after far so the marcher emits nothing
         t_start = torch.where(live, t, torch.maximum(t, fars))
-        ts, dts, valid, t_end = _march(
+        ts, dts, valid, t_end = march(
             rays_o, rays_d, occ_packed, t_start, fars, t_start, num_samples=B,
             max_steps=max_steps, cascades=cascades, bound=static.bound,
             dt_gamma=dt_gamma)

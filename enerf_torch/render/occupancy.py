@@ -14,6 +14,11 @@ The full update queries 2M cells per cascade; like the JAX package it runs
 in 64 chunks (16 for the partial update) under no_grad, which bounds the
 gathered block-grid rows to ~0.5 GB per chunk at 16 levels.
 `iter_density` is a Python int, so choosing the branch costs no device sync.
+The update writes its results in place into the state's density grid,
+bitfield, mean and packed bitfield (`occ_packed`, the 32-bit words the
+march reads, packed once per update): a training window captured in a
+CUDA graph reads those buffers at the addresses it was captured with.
+The returned state holds the same tensors, with iter_density + 1.
 Random draws come from a torch.Generator; tests inject the cell jitter
 (`noise`).
 
@@ -31,6 +36,7 @@ import torch.distributed as dist
 from enerf_torch.models.field import field_density
 
 GRID_SIZE = 128
+SUPER = 4  # cells per superblock side (the march's two-level skip)
 DENSITY_SCALE_STEP = 0.003383  # 2*sqrt(3)/1024, renderer.py:513
 
 
@@ -39,6 +45,27 @@ class OccupancyState(NamedTuple):
     occ_bitfield: torch.Tensor  # [CAS, H^3] bool
     mean_density: torch.Tensor  # scalar f32
     iter_density: int           # updates done so far
+    occ_packed: torch.Tensor    # [CAS * (H/4)^3, 2] int32: pack_bitfield(occ_bitfield)
+
+
+def pack_bitfield(occ_bitfield, out=None):
+    """[CAS, H^3] bool -> [CAS * (H/4)^3, 2] int32: each 4^3 superblock's 64
+    cell bits as two 32-bit words (low word: cells 0..31), written into
+    `out` when given."""
+    H, HS = GRID_SIZE, GRID_SIZE // SUPER
+    cas = occ_bitfield.shape[0]
+    occ3 = occ_bitfield.reshape(cas, HS, SUPER, HS, SUPER, HS, SUPER)
+    cells = occ3.permute(0, 1, 3, 5, 2, 4, 6).reshape(-1, 2, 32).to(torch.int64)
+    shifts = torch.arange(32, device=cells.device, dtype=torch.int64)
+    words = (cells << shifts).sum(-1)
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+    return words if out is None else out.copy_(words)
+
+
+def occupancy_state(density_grid, occ_bitfield, mean_density, iter_density):
+    """An OccupancyState with its packed bitfield made from occ_bitfield."""
+    return OccupancyState(density_grid, occ_bitfield, mean_density, iter_density,
+                          pack_bitfield(occ_bitfield))
 
 
 def num_cascades(bound):
@@ -56,9 +83,15 @@ def ball_bitfield(radius=0.48, cascades=1, device="cpu"):
     return torch.as_tensor(bf, device=device)
 
 
+def clone_occupancy(occ):
+    """A copy of `occ` with tensors of its own (the update writes in place)."""
+    return occ._replace(**{f: getattr(occ, f).clone() for f in occ._fields
+                           if torch.is_tensor(getattr(occ, f))})
+
+
 def init_occupancy(bound, device="cpu"):
     cas = num_cascades(bound)
-    return OccupancyState(
+    return occupancy_state(
         density_grid=torch.zeros(cas, GRID_SIZE ** 3, device=device),
         occ_bitfield=torch.zeros(cas, GRID_SIZE ** 3, dtype=torch.bool, device=device),
         mean_density=torch.zeros((), device=device),
@@ -178,18 +211,18 @@ def update_occupancy_sharded(params, static, occ, generator=None, rank_generator
 
 def _finish_update(occ, tmp, density_thresh, decay):
     """EMA decay + threshold + bitfield from the fresh queries `tmp`
-    (reference renderer.py:528-563); cells with tmp < 0 are untouched."""
+    (reference renderer.py:528-563); cells with tmp < 0 are untouched.
+    Written in place into occ's tensors (see the module docstring)."""
     valid = (occ.density_grid >= 0.0) & (tmp >= 0.0)
     new_grid = torch.where(
         valid, torch.maximum(occ.density_grid * decay, tmp), occ.density_grid)
     mean_density = new_grid.clamp(min=0.0).mean()
     thresh = torch.clamp(mean_density, max=density_thresh)
-    return OccupancyState(
-        density_grid=new_grid,
-        occ_bitfield=new_grid > thresh,
-        mean_density=mean_density,
-        iter_density=occ.iter_density + 1,
-    )
+    occ.density_grid.copy_(new_grid)
+    occ.mean_density.copy_(mean_density)
+    torch.gt(new_grid, thresh, out=occ.occ_bitfield)
+    pack_bitfield(occ.occ_bitfield, out=occ.occ_packed)
+    return occ._replace(iter_density=occ.iter_density + 1)
 
 
 @torch.no_grad()

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from enerf_torch.parallel import multihost
-from enerf_torch.render.occupancy import OccupancyState
+from enerf_torch.render.occupancy import occupancy_state
 
 S = "['state']"
 O = "['occupancy']"
@@ -43,19 +43,15 @@ def _np(x):
 def _snapshot(state, occupancy):
     """The whole state as {key: np.ndarray} (copied off the device)."""
     out = {f"{S}/.step": np.asarray(state.step, np.int32)}
-    count = 0
     for k, p in state.params.items():
-        moments = state.opt.state.get(p, {})
         out[f"{S}/.params/['{k}']"] = _np(p)
         out[f"{S}/.ema_params/['{k}']"] = _np(state.ema_params[k])
-        for jax_name, name in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-            m = moments.get(name)
-            out[f"{S}/.opt_state/[0]/.{jax_name}/['{k}']"] = (
-                _np(m) if m is not None else np.zeros(p.shape, np.float32))
-        if "step" in moments:
-            count = int(moments["step"])
-    out[f"{S}/.opt_state/[0]/.count"] = np.asarray(count, np.int32)
-    out[f"{S}/.opt_state/[1]/.count"] = np.asarray(state.sched.last_epoch, np.int32)
+        out[f"{S}/.opt_state/[0]/.mu/['{k}']"] = _np(state.exp_avg[k])
+        out[f"{S}/.opt_state/[0]/.nu/['{k}']"] = _np(state.exp_avg_sq[k])
+    # Adam's count and the schedule's: one device count in the port
+    count = np.asarray(int(state.count), np.int32)
+    out[f"{S}/.opt_state/[0]/.count"] = count
+    out[f"{S}/.opt_state/[1]/.count"] = count
     if occupancy is not None:
         for f in OCC_FIELDS:
             v = getattr(occupancy, f)
@@ -111,14 +107,15 @@ def load_checkpoint(path, state, occupancy=None):
                     hits += 1
             mu, nu = (take(f"{S}/.opt_state/[0]/.{m}/['{k}']", p) for m in ("mu", "nu"))
             if mu is not None and nu is not None and f"{S}/.opt_state/[0]/.count" in data:
-                count = float(data[f"{S}/.opt_state/[0]/.count"])
-                state.opt.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
-                                      "exp_avg": mu, "exp_avg_sq": nu}
+                state.exp_avg[k].copy_(mu)
+                state.exp_avg_sq[k].copy_(nu)
         if f"{S}/.step" in data:
             state.step = int(data[f"{S}/.step"])
             hits += 1
-        if f"{S}/.opt_state/[1]/.count" in data:
-            state.set_schedule_count(int(data[f"{S}/.opt_state/[1]/.count"]))
+        for c in ("[0]", "[1]"):  # Adam's count, else the schedule's
+            if f"{S}/.opt_state/{c}/.count" in data:
+                state.set_count(int(data[f"{S}/.opt_state/{c}/.count"]))
+                break
     if hits == 0:
         raise KeyError(f"checkpoint {path} matched no keys under prefix {S!r}; "
                        f"sample stored keys: {list(data.keys())[:3]}")
@@ -134,7 +131,7 @@ def load_checkpoint(path, state, occupancy=None):
                 fields[f] = v if v is not None else tmpl
         if not any(f"{O}/.{f}" in data for f in OCC_FIELDS):
             raise KeyError(f"checkpoint {path} matched no keys under prefix {O!r}")
-        occ = OccupancyState(**fields)
+        occ = occupancy_state(**fields)
     return state, occ, meta
 
 

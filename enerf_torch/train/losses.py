@@ -6,6 +6,8 @@ losses, the no-event hinge and the implicit-C telemetry.  The frame MSE
 comes with the frame term.
 """
 
+import functools
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -14,10 +16,15 @@ LUMA_ESIM = (0.299, 0.587, 0.114)  # BT.601, rpg_esim convention
 LUMA_709 = (0.2126, 0.7152, 0.0722)
 
 
+@functools.lru_cache(maxsize=None)
+def _luma_weights(esim, dtype, device):
+    return torch.tensor(LUMA_ESIM if esim else LUMA_709, dtype=dtype, device=device)
+
+
 def rgb_to_luma(rgb, esim=True):
-    """[..., 3] -> [..., 1] luma."""
-    f = torch.tensor(LUMA_ESIM if esim else LUMA_709, dtype=rgb.dtype, device=rgb.device)
-    return (rgb * f).sum(dim=-1, keepdim=True)
+    """[..., 3] -> [..., 1] luma (the weights made once per dtype and
+    device: no copy from the host inside a step)."""
+    return (rgb * _luma_weights(esim, rgb.dtype, rgb.device)).sum(dim=-1, keepdim=True)
 
 
 def lin_log(color, linlog_thres=20.0):

@@ -1,47 +1,81 @@
 """Train state: params + Adam + LR schedule + EMA.
 
 Counterpart of enerf_tpu/train/state.py (reference main_nerf.py:211-212):
-Adam(betas=(0.9, 0.99), eps=1e-15) with lr(step) = lr0 * 0.1**min(step/iters, 1)
-evaluated at the step before the update (LambdaLR stepped once per update,
-like optax's schedule count), and an EMA shadow with the torch_ema warmup
-decay min(0.95, (1+n)/(10+n)) at the pre-increment step n.
+Adam(betas=(0.9, 0.99), eps=1e-15) with lr(n) = lr0 * 0.1**min(n/iters, 1)
+at the count n of updates before this one (optax's schedule count), and an
+EMA shadow with the torch_ema warmup decay min(0.95, (1+n)/(10+n)).
+
+One update rule for the per-step path and for a training window replayed
+as a CUDA graph (train/chunk.py): the count of updates lives in a device
+tensor (`count`, float64), and the learning rate, Adam's bias corrections
+and the EMA decay are computed from it on the device, by `_foreach` ops
+that read no host value.  A replayed graph therefore advances the
+schedule, the bias corrections and the decay as eager steps do.  The
+moments are allocated with the state (zeros), so their addresses never
+change.  `step` is the same count as a host int, for the trainer's loop
+and the checkpoints; a replayed window's caller advances it by K.
 """
 
 import torch
 
+BETA1, BETA2, EPS = 0.9, 0.99, 1e-15
+
 
 class TrainState:
-    """Leaf parameters (requires_grad), their optimizer and EMA shadow."""
+    """Leaf parameters (requires_grad), their Adam moments and EMA shadow."""
 
     def __init__(self, params, lr0, iters, ema_decay=0.95):
         self.params = {k: v.detach().clone().requires_grad_(True)
                        for k, v in params.items()}
         self.ema_params = {k: v.detach().clone() for k, v in params.items()}
+        self.exp_avg = {k: torch.zeros_like(v) for k, v in self.params.items()}
+        self.exp_avg_sq = {k: torch.zeros_like(v) for k, v in self.params.items()}
+        device = next(iter(self.params.values())).device
+        self.count = torch.zeros((), dtype=torch.float64, device=device)
         self.step = 0
-        self.ema_decay = ema_decay
-        self.opt = torch.optim.Adam(list(self.params.values()), lr=lr0,
-                                    betas=(0.9, 0.99), eps=1e-15)
-        self.sched = torch.optim.lr_scheduler.LambdaLR(
-            self.opt, lambda s: 0.1 ** min(s / iters, 1.0))
+        self.lr0, self.iters, self.ema_decay = float(lr0), float(iters), ema_decay
 
-    def set_schedule_count(self, count):
-        """Put the LR schedule at `count` updates (a resumed checkpoint)."""
-        self.sched.last_epoch = count
-        lrs = [base * f(count) for base, f in zip(self.sched.base_lrs, self.sched.lr_lambdas)]
-        for group, lr in zip(self.opt.param_groups, lrs):
-            group["lr"] = lr
-        self.sched._last_lr = lrs
+    def lr(self):
+        """The next update's learning rate, a float64 device scalar."""
+        return self.lr0 * torch.pow(0.1, torch.clamp(self.count / self.iters, max=1.0))
+
+    def set_count(self, count):
+        """Put the schedule, the bias corrections and the EMA warmup at
+        `count` updates done (a resumed checkpoint)."""
+        self.count.fill_(float(count))
 
     def zero_grad(self):
-        self.opt.zero_grad(set_to_none=True)
+        for p in self.params.values():
+            p.grad = None
 
     @torch.no_grad()
     def apply_updates(self):
-        """One Adam step from the accumulated .grad, then the EMA update."""
-        self.opt.step()
-        self.sched.step()
-        n = float(self.step)
-        d = min(self.ema_decay, (1.0 + n) / (10.0 + n))
-        for k, p in self.params.items():
-            self.ema_params[k].mul_(d).add_(p, alpha=1.0 - d)
+        """One Adam step from the accumulated .grad (params without one are
+        left alone, as torch.optim.Adam leaves them), then the EMA update of
+        every param; the counts advance by one."""
+        names = [k for k, p in self.params.items() if p.grad is not None]
+        ps = [self.params[k] for k in names]
+        gs = [p.grad for p in ps]
+        ms = [self.exp_avg[k] for k in names]
+        vs = [self.exp_avg_sq[k] for k in names]
+        n = self.count
+        t = n + 1.0
+        step_size = (self.lr() / (1.0 - torch.pow(BETA1, t))).float()
+        bc2_sqrt = torch.sqrt(1.0 - torch.pow(BETA2, t)).float()
+        if ps:
+            torch._foreach_lerp_(ms, gs, 1.0 - BETA1)
+            torch._foreach_mul_(vs, BETA2)
+            torch._foreach_addcmul_(vs, gs, gs, 1.0 - BETA2)
+            denom = torch._foreach_sqrt(vs)
+            torch._foreach_div_(denom, bc2_sqrt)
+            torch._foreach_add_(denom, EPS)
+            upd = torch._foreach_div(ms, denom)
+            torch._foreach_mul_(upd, -step_size)
+            torch._foreach_add_(ps, upd)
+        d = torch.clamp((1.0 + n) / (10.0 + n), max=self.ema_decay).float()
+        es = list(self.ema_params.values())
+        torch._foreach_mul_(es, d)
+        torch._foreach_add_(es, torch._foreach_mul(
+            [p.detach() for p in self.params.values()], 1.0 - d))
+        self.count.add_(1.0)
         self.step += 1

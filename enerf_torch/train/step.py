@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from enerf_torch.models.field import EncodeReplay
 from enerf_torch.ops.aabb import aabb_tensor, near_far_from_aabb
 from enerf_torch.render.march import (
-    composite_from_march, march_rays, render_rays_march,
+    composite_from_march, march_rays, num_cascades_of, render_rays_march,
 )
 from enerf_torch.render.renderer import render_rays
 from enerf_torch.train import losses
@@ -96,7 +96,7 @@ def _render_pair_shared(params, ss, o1, d1, o2, d2, bg, jitter, occ):
     ts, dts, valid = march_rays(
         o1, d1, occ, nears, fars, jitter=jitter,
         num_samples=ss.march_samples, max_steps=ss.max_steps,
-        cascades=occ.shape[0], bound=fs.bound, dt_gamma=ss.dt_gamma,
+        cascades=num_cascades_of(occ), bound=fs.bound, dt_gamma=ss.dt_gamma,
         perturb=True)
     return tuple(
         composite_from_march(

@@ -38,12 +38,21 @@ Counterpart of enerf_tpu/train/trainer.py (reference nerf/utils.py:289-1416):
     rendered and written with that map), `test`, `render_view` through the
     alive-ray inference renderer (march) or the staged fixed-step
     renderer, and `save_mesh` (the density isosurface, utils/mesh.py).
-One step runs per dispatch (the JAX package's fused multi-step window,
-train/chunk.py, has no counterpart).  Images are written as PNG by the
+With fuse_steps > 1 (the default 16) `train` runs each epoch in windows
+(train/chunk.py, JAX's trainer.py:391-470): the occupancy update and K
+steps, replayed as a CUDA graph on a card; march_warmup and
+occ_freeze_after chosen at a window's start; the window's mean logged
+when the step count crosses a multiple of log_every; the rest of the
+epoch step by step with the per-step cadence, through the window's
+step (an epoch shorter than a window runs `train_step`; under a mesh
+the epoch is rounded down to whole windows instead, and logged once); a
+captured graph is kept across epochs and released before an evaluation
+and at the end.  Images are written as PNG by the
 port's own writer (no OpenCV).  Not ported: tensorboard.
 """
 
 import dataclasses
+import gc
 import json
 import os
 import time
@@ -58,13 +67,14 @@ from enerf_torch.models.field import FieldStatic, field_density, init_field_para
 from enerf_torch.parallel import mesh as dp
 from enerf_torch.parallel import multihost
 from enerf_torch.parallel.multihost import gather_rows
-from enerf_torch.render.march import pack_bitfield, render_rays_infer
+from enerf_torch.render.march import render_rays_infer
 from enerf_torch.render.occupancy import (
     init_occupancy, mark_untrained_grid, update_occupancy, update_occupancy_sharded,
 )
 from enerf_torch.render.renderer import render_rays_staged
 from enerf_torch.train import metrics as M
 from enerf_torch.train.checkpoints import CheckpointManager, load_checkpoint
+from enerf_torch.train.chunk import make_train_chunk
 from enerf_torch.train.clip_guidance import CLIPGuidance, StubEmbedder
 from enerf_torch.train.losses import rgb_to_luma
 from enerf_torch.train.state import TrainState
@@ -159,6 +169,8 @@ class Trainer:
             seed = int(np.random.SeedSequence([cfg.seed + 1, mesh.rank]).generate_state(1)[0])
             self.rank_generator = torch.Generator(device=self.device).manual_seed(seed)
         self._sharded_steps = {}  # warm phase -> make_sharded_train_step
+        self._chunk_cache = {}  # window key -> TrainChunk (train/chunk.py)
+        self._chunk_round_logged = False
 
         self.workspace = workspace or os.path.join(cfg.outdir, cfg.expweek, cfg.expname)
         os.makedirs(self.workspace, exist_ok=True)
@@ -175,6 +187,7 @@ class Trainer:
         self.history = []     # (step, {loss term: float}) of every logged step
         self.last_eval = {}   # the results of the last evaluate() in train()
         self.epoch_seconds = {}  # the last epoch's steps and tail, synchronized
+        self.seconds_by_epoch = {}  # epoch -> its epoch_seconds
         self.lpips_seconds = None  # the last evaluation's LPIPS seconds per view
         self.mesh_seconds = {}  # the last save_mesh's query, extraction and write
         self.diagnostics = []  # what dump_run_diagnostics wrote at the start of train,
@@ -269,6 +282,12 @@ class Trainer:
             self.epoch_seconds[name] = self._clock() - t0
             return out
 
+        # the training window (train/chunk.py, JAX's fuse_steps path): K
+        # steps with the occupancy update first, replayed as a CUDA graph on
+        # a card; the per-step loop for the rand-pose CLIP batches
+        chunk_len = int(cfg.fuse_steps)
+        use_chunk = (chunk_len > 1 and self.clip_guidance is None
+                     and getattr(provider, "rand_pose", -1) < 0)
         for epoch in range(self.epoch + 1, max_epoch + 1):
             self.epoch = epoch
             if getattr(provider, "noev_coords", None) is not None:
@@ -276,8 +295,37 @@ class Trainer:
                 provider.use_no_ev = epoch > cfg.epoch_start_noEvLoss
             epoch_losses, self.epoch_seconds = [], {}
             t_steps = self._clock()
-            for _ in range(steps_per_epoch):
-                aux = self.train_step(provider)
+            it = 0
+            if use_chunk:
+                while it + chunk_len <= steps_per_epoch:
+                    chunk = self._chunk(provider, chunk_len, global_step)
+                    self.occupancy, aux = chunk(
+                        self.state, self.occupancy, provider, self.generator,
+                        self.rank_generator)
+                    prev = global_step
+                    it += chunk_len
+                    global_step += chunk_len
+                    maybe_profile(global_step)
+                    if global_step // cfg.log_every != prev // cfg.log_every:
+                        epoch_losses.append(log_aux(aux, global_step))
+                if self.mesh is not None and it < steps_per_epoch:
+                    # the window's global batch is world size x the per-step
+                    # path's: no mixing within an epoch (JAX's trainer)
+                    if not self._chunk_round_logged:
+                        self._chunk_round_logged = True
+                        self.log(f"[train] mesh chunking: {steps_per_epoch} steps/epoch "
+                                 f"rounded down to {it} (whole {chunk_len}-step windows)")
+                    it = steps_per_epoch
+            windowed = it > 0
+            for _ in range(it, steps_per_epoch):
+                if windowed:
+                    # the per-step path's cadence through the window's
+                    # step: on a card, one replay of its captured graph
+                    self.occupancy, aux = self._chunk(provider, chunk_len, global_step)(
+                        self.state, self.occupancy, provider, self.generator,
+                        self.rank_generator, steps=1, update=global_step % 16 == 0)
+                else:
+                    aux = self.train_step(provider)
                 global_step += 1
                 maybe_profile(global_step)
                 if global_step % cfg.log_every == 0:
@@ -293,6 +341,7 @@ class Trainer:
                 timed("checkpoint", self.ckpt.save, self.state, self.occupancy, epoch,
                       self.stats)
             if valid_provider is not None and epoch % cfg.eval_interval == 0:
+                self._release_windows()
                 results = self.last_eval = timed("evaluate", self.evaluate, valid_provider)
                 metric = results.get("psnr_corrected", results.get("psnr", 0.0))
                 self.stats["psnr"].append(metric)
@@ -307,11 +356,54 @@ class Trainer:
                              f"{self.best_metric:.2f} dB is checkpointed); rerun from "
                              "the best ckpt with a lower lr to continue")
                     break
+            self.seconds_by_epoch[epoch] = self.epoch_seconds
             self.log(f"[epoch] {epoch}: " + ", ".join(
                 f"{k} {v:.2f} s" for k, v in self.epoch_seconds.items()))
+        self._release_windows()
         maybe_profile(global_step, end=True)
         self.ckpt.wait()
         self.log(f"[train] done at epoch {self.epoch}, step {global_step}")
+
+    def _chunk(self, provider, chunk_len, step):
+        """The window to run at `step` (JAX's get_chunk): march_warmup and
+        occ_freeze_after chosen at the window's start, one window per
+        (mode, provider and its no-event gate, K, mesh, warm, frozen); on a
+        card only the window in use keeps its captured graph."""
+        cfg = self.cfg
+        warm = step < cfg.march_warmup
+        frozen = cfg.occ_freeze_after > 0 and step >= cfg.occ_freeze_after
+        mode = "events" if cfg.events else "frames"
+        key = (mode, id(provider), getattr(provider, "use_no_ev", None), chunk_len,
+               self.mesh is not None, warm, frozen)
+        if key not in self._chunk_cache:
+            self._chunk_cache[key] = make_train_chunk(
+                warm_statics(self.ss) if warm else self.ss, mode, chunk_len=chunk_len,
+                use_occ=self.occupancy is not None, freeze_occ=frozen,
+                density_scale=cfg.density_scale, density_thresh=cfg.density_thresh,
+                error_map=bool(cfg.error_map) and getattr(provider, "error_map", None)
+                is not None, mesh=self.mesh)
+            if self.mesh is not None:
+                self.log(f"[train] {chunk_len}-step windows over {self.mesh.world_size} ranks: "
+                         "each rank samples the config's batch; the window runs eagerly (a "
+                         "mesh window is not captured in a CUDA graph)")
+        chunk = self._chunk_cache[key]
+        for other in self._chunk_cache.values():
+            if other is not chunk:
+                other.release()
+        return chunk
+
+    def _release_windows(self):
+        """Free the windows' captured graphs and their memory pools, and the
+        gradients the capture left there, before an evaluation and at the
+        end of `train`: a graph's pool holds a whole step's memory.  The
+        next window captures again."""
+        if not any(chunk.graph is not None for chunk in self._chunk_cache.values()):
+            return
+        for chunk in self._chunk_cache.values():
+            chunk.release()
+        self.state.zero_grad()
+        gc.collect()
+        torch.cuda.empty_cache()
 
     def train_step(self, provider):
         """One training step at self.state.step (the counterpart of JAX's
@@ -334,7 +426,7 @@ class Trainer:
         batch = provider.train_step_batch(self.rank_generator)
         warm = step < cfg.march_warmup
         ss = warm_statics(self.ss) if warm else self.ss
-        occ = self.occupancy.occ_bitfield if self.occupancy is not None else None
+        occ = self.occupancy.occ_packed if self.occupancy is not None else None
         if "rand_pose_side" in batch:  # no error-map update on this batch
             if self.clip_guidance is None:  # JAX asserts (trainer.py:250)
                 raise ValueError("--rand_pose >= 0 gives rand-pose batches, which need "
@@ -421,11 +513,11 @@ class Trainer:
                 self.static, self.mesh, num_samples=max(2 * cfg.march_samples, 128),
                 max_steps=self.ss.max_steps, min_near=cfg.min_near,
                 density_scale=cfg.density_scale, dt_gamma=cfg.dt_gamma,
-            )(params, self.occupancy.occ_bitfield, ro, rd)
+            )(params, self.occupancy.occ_packed, ro, rd)
         if out is not None:
             return (out["image"].reshape(H, W, C).cpu().numpy(),
                     out["depth"].reshape(H, W).cpu().numpy())
-        packed = pack_bitfield(self.occupancy.occ_bitfield)
+        packed = self.occupancy.occ_packed
         chunk = min(int(self.cfg.max_ray_batch), ro.shape[0])
         images, depths = [], []
         for s in range(0, ro.shape[0], chunk):

@@ -322,7 +322,7 @@ def test_bg_and_tableless_checkpoint_round_trip(tmp_path, encoding, direction):
         for k, p in state_t.params.items():
             np.testing.assert_array_equal(np.asarray(loaded.params[k]), n(p), err_msg=k)
             np.testing.assert_array_equal(np.asarray(loaded.opt_state[0].mu[k]),
-                                          n(state_t.opt.state[p]["exp_avg"]), err_msg=k)
+                                          n(state_t.exp_avg[k]), err_msg=k)
 
 
 # ------------------------------------------------------------------ trainers

@@ -227,21 +227,19 @@ def test_checkpoint_jax_writes_port_reads(tmp_path):
     tmpl = _torch_state({k: np.zeros_like(v) for k, v in params_np(state_j.params).items()})
     state_t, occ_t, meta = tckpt.load_checkpoint(path, tmpl, tocc.init_occupancy(1.0))
     assert meta == {"epoch": 3, "global_step": 2, "stats": {"loss": [1.5]}}
-    assert state_t.step == 2 and state_t.sched.last_epoch == 2
+    assert state_t.step == 2 and int(state_t.count) == 2
     mu, nu = state_j.opt_state[0].mu, state_j.opt_state[0].nu
     for k, p in state_t.params.items():
         np.testing.assert_array_equal(n(p), np.asarray(state_j.params[k]), err_msg=k)
         np.testing.assert_array_equal(n(state_t.ema_params[k]), np.asarray(state_j.ema_params[k]))
-        st = state_t.opt.state[p]
-        np.testing.assert_array_equal(n(st["exp_avg"]), np.asarray(mu[k]))
-        np.testing.assert_array_equal(n(st["exp_avg_sq"]), np.asarray(nu[k]))
-        assert float(st["step"]) == 2
+        np.testing.assert_array_equal(n(state_t.exp_avg[k]), np.asarray(mu[k]))
+        np.testing.assert_array_equal(n(state_t.exp_avg_sq[k]), np.asarray(nu[k]))
     for f, v in zip(tckpt.OCC_FIELDS, (grid, bits, mean, it)):
         np.testing.assert_array_equal(np.asarray(n(getattr(occ_t, f)) if f != "iter_density"
                                                  else occ_t.iter_density), v, err_msg=f)
     # the restored optimizer continues like JAX's: one more update on the
     # same gradient (Adam's bias correction reads the restored count)
-    assert state_t.opt.param_groups[0]["lr"] == pytest.approx(5e-3 * 0.1 ** (2 / 100), rel=1e-12)
+    assert float(state_t.lr()) == pytest.approx(5e-3 * 0.1 ** (2 / 100), rel=1e-12)
     rng = np.random.default_rng(9)
     grads = {k: rng.normal(size=v.shape).astype(np.float32) for k, v in state_j.params.items()}
     new_j = jstate.apply_updates(state_j, {k: jnp.asarray(v) for k, v in grads.items()}, opt)
@@ -268,9 +266,10 @@ def test_checkpoint_port_writes_jax_reads(tmp_path):
     for k, p in state_t.params.items():
         np.testing.assert_array_equal(np.asarray(state_j.params[k]), n(p), err_msg=k)
         np.testing.assert_array_equal(np.asarray(state_j.ema_params[k]), n(state_t.ema_params[k]))
-        st = state_t.opt.state[p]
-        np.testing.assert_array_equal(np.asarray(state_j.opt_state[0].mu[k]), n(st["exp_avg"]))
-        np.testing.assert_array_equal(np.asarray(state_j.opt_state[0].nu[k]), n(st["exp_avg_sq"]))
+        np.testing.assert_array_equal(np.asarray(state_j.opt_state[0].mu[k]),
+                                      n(state_t.exp_avg[k]))
+        np.testing.assert_array_equal(np.asarray(state_j.opt_state[0].nu[k]),
+                                      n(state_t.exp_avg_sq[k]))
     np.testing.assert_array_equal(np.asarray(occ_j.density_grid), grid)
     np.testing.assert_array_equal(np.asarray(occ_j.occ_bitfield), bits)
     assert float(occ_j.mean_density) == float(mean) and int(occ_j.iter_density) == it

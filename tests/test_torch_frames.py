@@ -273,7 +273,7 @@ def test_hashgrid_checkpoint_round_trip(tmp_path, direction):
         assert occ is None and state_t.step == 2 and meta["epoch"] == 1
         for k, p in state_t.params.items():
             np.testing.assert_array_equal(n(p), np.asarray(state_j.params[k]), err_msg=k)
-            np.testing.assert_array_equal(n(state_t.opt.state[p]["exp_avg"]),
+            np.testing.assert_array_equal(n(state_t.exp_avg[k]),
                                           np.asarray(state_j.opt_state[0].mu[k]))
     else:
         state_t = tstate.TrainState(params_from_jax(params_np(pj)), 5e-3, 100)

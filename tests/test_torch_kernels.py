@@ -207,3 +207,35 @@ def test_group_gather_kernel_matches_twin_on_card(rows, d, groups, windows):
     assert group_gather.group_gather.launches == before + 1
     # a copy: bit-exact
     assert torch.equal(got, group_gather.group_gather_reference(gidx, table))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt_gamma,max_steps,bound", [(0.0, 1024, 1.0), (1.0 / 256, 1024, 1.0),
+                                                      (0.0, 256, 2.0)])
+def test_march_kernel_matches_twin_on_card(dt_gamma, max_steps, bound):
+    """M1 against `_march` on rays from a shell (a few parallel to an axis,
+    so 0 * inf meets a cell face), some missing the box: bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (M1 has no CPU mode)")
+    from enerf_torch.ops.aabb import aabb_tensor, near_far_from_aabb
+    from enerf_torch.render import march as M
+    from enerf_torch.render.occupancy import ball_bitfield, num_cascades, pack_bitfield
+    g = torch.Generator(device="cuda").manual_seed(3)
+    N, cas = 3001, num_cascades(bound)
+    o = torch.randn(N, 3, device="cuda", generator=g)
+    o = 2.5 * bound * o / o.norm(dim=-1, keepdim=True)
+    d = torch.rand(N, 3, device="cuda", generator=g) - 0.5 - o / (2.5 * bound)
+    d[:20, 1:] = 0.0  # axis-parallel rays
+    d = d / d.norm(dim=-1, keepdim=True)
+    nears, fars = near_far_from_aabb(o, d, aabb_tensor(bound, "cuda"), 0.2)
+    t0 = nears + (2.0 * M.SQRT3 / max_steps) * torch.rand(N, device="cuda", generator=g)
+    bits = pack_bitfield(ball_bitfield(radius=0.6, cascades=cas, device="cuda"))
+    kw = dict(num_samples=37, max_steps=max_steps, cascades=cas, bound=bound, dt_gamma=dt_gamma)
+    before = M.march_rays.launches
+    got = M.launch_kernel(o, d, bits, nears, fars, t0, **kw)
+    torch.cuda.synchronize()
+    assert M.march_rays.launches == before + 1
+    ref = M._march(o, d, bits, nears, fars, t0, **kw)
+    assert int(ref[2].sum()) > 1000
+    for a, b in zip(got, ref):
+        assert torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))

@@ -32,8 +32,11 @@ SMALL_MESH_CLI = os.path.join(HERE, "torch_cli_small_mesh.py")
 
 def _argv(outdir, *extra):
     # frames mode on the hash grid with the error map, tiny: one 100-step
-    # epoch, its evaluation, the test render, the mesh
+    # epoch, its evaluation, the test render, the mesh; the per-step path
+    # (--fuse_steps 1: the config's batch split over the ranks; the window
+    # path is tests/test_torch_chunk_mesh.py's)
     return ["--mode", "synthetic", "--H", "24", "--W", "24", "--syn_frames", "10",
+            "--fuse_steps", "1",
             "--num_rays", "128", "--num_steps", "16", "--num_levels", "2", "--error_map",
             "--val_idxs", "0", "--eval_interval", "1", "--log_every", "50", "--iters", "2",
             "--outdir", str(outdir), "--expname", "cli", "--device", "cpu", *extra]
@@ -138,7 +141,7 @@ def _march_ranks(mesh, workspace, out_dir):
         "--events", "1", "--event_only", "1", "--out_dim_color", "1", "--C_thres", "-1",
         "--bound", "1", "--lr", "0.005", "--ff", "-O", "--num_levels", "2",
         "--batch_size_evs", "64", "--march_samples", "16", "--log_every", "1",
-        "--val_idxs", "0", "--eval_interval", "1"])
+        "--val_idxs", "0", "--eval_interval", "1", "--fuse_steps", "1"])
     trainer = Trainer(cfg, workspace=workspace, mesh=mesh)
     train, val = make_providers(cfg, device="cpu", shards=mesh.world_size)
     assert train.batch_size_evs == 32

@@ -92,7 +92,8 @@ def test_config_parses_tpu_flags_and_refuses_missing_paths():
     # the data-parallel options are the port's own (parallel/, cli.py)
     cfg = _cfg("--mesh_shape", "2", "--multihost", "1")
     assert cfg.mesh_shape == [2] and cfg.multihost == 1
-    assert not {"mesh_shape", "multihost"} & set(TPU_ONLY) and "fuse_steps" in TPU_ONLY
+    # ... and so is the training window (train/chunk.py)
+    assert not {"mesh_shape", "multihost", "fuse_steps"} & set(TPU_ONLY)
     check_supported(cfg)
     # the no-event pair, the device slerp, the frame term, march_warmup and
     # frames mode are ported
@@ -128,10 +129,13 @@ def test_trainer_cpu_run_trains_with_occupancy_updates(tmp_path):
     launches = fused_mlp.fused_field_head.launches
     trainer.train(train, max_epoch=1)
     assert trainer.state.step == 17
-    # occupancy updates before steps 0 and 16
+    # occupancy updates before steps 0 and 16: the window's (steps 0-15,
+    # fuse_steps 16) and the per-step path's before step 16
     assert trainer.occupancy.iter_density == 2
+    # logged: the window's mean at step 16, then step 17 (log_every 1)
+    assert [s for s, _ in trainer.history] == [16, 17]
     losses = [aux["loss"] for _, aux in trainer.history]
-    assert len(losses) == 17 and np.isfinite(losses).all()
+    assert np.isfinite(losses).all()
     v = val.val_views()[0]
     img, depth = trainer.render_view(v["pose"], v["intrinsics"], v["H"], v["W"])
     assert img.shape == (32, 32, 1) and np.isfinite(img).all()
@@ -165,8 +169,9 @@ def small_meshes(monkeypatch):
 
 def test_cli_trains_then_writes_mesh_lpips_and_a_profile(tmp_path, small_meshes):
     """python -m enerf_torch ... --iters 2 --profile 1: one 100-step epoch,
-    the evaluation with finite LPIPS, a trace of step 2, the test render
-    and the mesh after train + test."""
+    the evaluation with finite LPIPS, a trace of the second 16-step window
+    (the first one after step 1), the test render and the mesh after train
+    + test."""
     from enerf_torch.__main__ import main
     main(_cli_argv(tmp_path, "--iters", "2", "--profile", "1"))
     ws = os.path.join(str(tmp_path), "testweek", "cli")
@@ -178,7 +183,7 @@ def test_cli_trains_then_writes_mesh_lpips_and_a_profile(tmp_path, small_meshes)
     assert small_meshes == [(256, 10.0)]
     assert os.path.exists(os.path.join(ws, "meshes", "cli_ep0001.obj"))
     assert len(os.listdir(os.path.join(ws, "profile"))) == 1
-    assert "[profile] trace of steps 2-2" in log
+    assert "[profile] trace of steps 17-32" in log
     assert os.path.exists(os.path.join(ws, "diagnostics"))
     assert os.path.exists(os.path.join(ws, "results", "0000.png"))
 

@@ -189,15 +189,16 @@ def run_occupancy(mesh, data, out):
     params = _case(data, "occ", "param")
     occ = tocc.update_occupancy_sharded(params, st, tocc.init_occupancy(1.0), mesh=mesh,
                                         noise=torch.from_numpy(data["occ/noise"]))
-    out["occ/full/density_grid"] = occ.density_grid.numpy()
-    out["occ/full/occ_bitfield"] = occ.occ_bitfield.numpy()
-    out["occ/full/mean_density"] = occ.mean_density.numpy()
+    # copies: the next update writes the same tensors in place
+    out["occ/full/density_grid"] = occ.density_grid.numpy().copy()
+    out["occ/full/occ_bitfield"] = occ.occ_bitfield.numpy().copy()
+    out["occ/full/mean_density"] = occ.mean_density.numpy().copy()
     out["occ/full/iter_density"] = np.asarray(occ.iter_density)
     # the resampling phase: each rank's own draws, one merge
     rank_gen = torch.Generator().manual_seed(100 + mesh.rank)
     occ = tocc.update_occupancy_sharded(params, st, occ._replace(iter_density=20),
                                         rank_generator=rank_gen, mesh=mesh)
-    out["occ/partial/density_grid"] = occ.density_grid.numpy()
+    out["occ/partial/density_grid"] = occ.density_grid.numpy().copy()
     out["occ/partial/iter_density"] = np.asarray(occ.iter_density)
 
 
