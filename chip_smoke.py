@@ -114,9 +114,23 @@ Phases (one line each; any failure exits non-zero before the result lines):
      back by the port's HDF5 reader equal to the array written, the
      reader's MB/s on t, and one EventSlicer window equal to a numpy mask
      over the arrays written;
+ 15b. dataset preparation without OpenCV: the fixture's frames distorted
+     with an equidistant (fisheye, TUM-VIE's) model and written as JPEG by
+     the port's encoder into images/, its events' coordinates distorted the
+     same way; `python -m enerf_torch.tools.undistort_images --model
+     fisheye --img_glob 'images/*.jpg' --out_suffix left` prepares the
+     directory (undistorted JPEG frames, rectify_map_left.h5, Knew), which
+     is laid out as the TUM-VIE loader reads it; the tool's frames equal
+     this process's remap and encode of the same frames, and their inner
+     half the clean frames seen through Knew (PSNR > 30 dB); the decoder's
+     and encoder's ms a frame (the fixture's rendered frame, colour 4:2:0
+     q95 and gray, and textured frames: 720 x 1280 colour, 1024 x 1024 gray,
+     the size of TUM-VIE's frame cameras), the map build's seconds, the
+     remap's ms a frame and the tool's seconds;
  16. configs/mocapDesk2/mocapDesk2_enerf.txt as published (tumvie, event
      only, 2 renders of 20,096 rays x 512 steps, the stereo event views)
-     on the fixture, train / val indices cut to its 6 frames: one batch
+     on the directory phase 15b prepared (its JPEG frames decoded by the
+     port's decoder), train / val indices cut to its 6 frames: one batch
      under torch.cuda.set_sync_debug_mode("error") (the window is drawn
      on the card), two 16-step epochs (one graphed window each, as in
      12) and one evaluation (a 720 x 1280 frame view and its stereo
@@ -172,7 +186,13 @@ Phases (one line each; any failure exits non-zero before the result lines):
      the global batch; 2 x 15,048 pairs x 512 steps a rank), 4 steps:
      steps/s, each rank's peak memory, the all_reduce's ms per step, the
      epoch-end replication check; a torch.OutOfMemoryError as published
-     is printed as the result and the phase reruns with --remat_fixed 1.
+     is printed as the result and the phase reruns with --remat_fixed 1;
+     (e) --events 0 --rand_pose 1 --clip_text on the default path's config
+     (--fuse_steps 1): one data-parallel frame step, then the rand-pose
+     CLIP step on both ranks (one pose from the shared generator, the
+     gradients meaned), the ranks bit-equal, and one process's CLIP step
+     from the same state and draws within 1e-6 by norm of every tensor
+     (deterministic index_add_ on both sides).
 Then a `{"kernels": [...]}` line, the card line, and last the result line
 `{"ok": true, "device": {...}}`.
 """
@@ -2254,6 +2274,163 @@ def phase_eds_fixture(data, root):
     return datadir
 
 
+# TUM-VIE's event and frame cameras use the equidistant (Kannala-Brandt)
+# model; coefficients of that order
+FISHEYE_D = (0.0348, -0.0101, 0.0037, -0.0011)
+
+
+def fisheye_distort(xy, intr, D):
+    """The equidistant model forward: undistorted pixels [N, 2] -> distorted."""
+    import numpy as np
+    fx, fy, cx, cy = intr
+    x, y = (xy[:, 0] - cx) / fx, (xy[:, 1] - cy) / fy
+    r = np.sqrt(x * x + y * y)
+    th = np.arctan(r)
+    thd = th * (1 + D[0] * th ** 2 + D[1] * th ** 4 + D[2] * th ** 6 + D[3] * th ** 8)
+    s = np.where(r > 1e-12, thd / np.maximum(r, 1e-12), 1.0)
+    return np.stack([x * s * fx + cx, y * s * fy + cy], -1)
+
+
+def phase_prep(datadir):
+    """Phase 15b: the fixture made raw (fisheye-distorted JPEG frames and
+    event coordinates), then prepared by the port's undistortion tool and
+    laid out as the TUM-VIE loader reads it."""
+    import numpy as np
+    from enerf_torch.data import h5events
+    from enerf_torch.tools.undistort_images import build_maps
+    from enerf_torch.utils import camera, hdf5, jpeg
+    from enerf_torch.utils.png import read_png
+
+    H, W = TUMVIE_H, TUMVIE_W
+    imgdir = os.path.join(datadir, "left_images_undistorted")
+    pngs = sorted(glob.glob(os.path.join(imgdir, "*.png")))
+    calib_path = os.path.join(datadir, "calib_undist.json")
+    with open(calib_path) as f:
+        cal = json.load(f)
+    c0 = cal["value0"]["intrinsics_undistorted"][0]
+    intr = (c0["fx"], c0["fy"], c0["cx"], c0["cy"])
+    K = np.array([[intr[0], 0, intr[2]], [0, intr[1], intr[3]], [0, 0, 1.0]])
+    D = np.asarray(FISHEYE_D)
+    # raw frames: dst(u_d) = clean(undistort(u_d)), JPEG at cv2's defaults
+    grid = np.stack(np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32)),
+                    -1).reshape(-1, 1, 2)
+    und = camera.fisheye_undistort_points(grid, K, D, P=K).reshape(H, W, 2)
+    rawdir = os.path.join(datadir, "images")
+    os.makedirs(rawdir, exist_ok=True)
+    clean = []
+    for p in pngs:
+        clean.append(read_png(p))
+        raw = camera.remap_linear(clean[-1], und[..., 0], und[..., 1])
+        jpeg.write_jpeg(os.path.join(rawdir, os.path.basename(p)[:-4] + ".jpg"), raw)
+    # raw events: their coordinates distorted the same way, on the sensor
+    with hdf5.File(os.path.join(datadir, "events_left.h5")) as f:
+        ev = {k: np.asarray(f["events/" + k]) for k in "xytp"}
+    dist = fisheye_distort(np.stack([ev["x"], ev["y"]], -1).astype(np.float64), intr, D)
+    keep = ((dist[:, 0] >= 0) & (dist[:, 0] <= W - 1) & (dist[:, 1] >= 0)
+            & (dist[:, 1] <= H - 1))
+    dist = np.floor(dist[keep])
+    h5events.write_event_h5(os.path.join(datadir, "events_left.h5"), dist[:, 0], dist[:, 1],
+                            ev["t"][keep], ev["p"][keep], grouped=True)
+    with open(os.path.join(datadir, "calibration.json"), "w") as f:
+        json.dump({"intrinsics": [{"fx": intr[0], "fy": intr[1], "cx": intr[2],
+                                   "cy": intr[3], **dict(zip(("k1", "k2", "k3", "k4"),
+                                                             FISHEYE_D))}]}, f)
+    # the tool, as a user runs it
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", "enerf_torch.tools.undistort_images", "--datadir", datadir,
+         "--calib", os.path.join(datadir, "calibration.json"), "--cam", "0", "--model",
+         "fisheye", "--img_glob", "images/*.jpg", "--out_suffix", "left"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    tool_s = time.time() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"undistort_images failed:\n{out.stderr[-3000:]}")
+    with open(os.path.join(datadir, "calib_undist_left.json")) as f:
+        knew = json.load(f)["intrinsics_undistorted"][0]
+    rmap = h5events.load_rectify_map(os.path.join(datadir, "rectify_map_left.h5"))
+    # the loader's layout: the tool's JPEG frames and Knew for every camera
+    for p in pngs:
+        os.remove(p)
+    prepared = sorted(glob.glob(os.path.join(datadir, "images_undistorted_left", "*.jpg")))
+    for p in prepared:
+        shutil.copy(p, imgdir)
+    for ci in range(4):
+        cal["value0"]["intrinsics_undistorted"][ci] = {k: knew[k] for k in ("fx", "fy", "cx",
+                                                                         "cy")}
+    with open(calib_path, "w") as f:
+        json.dump(cal, f)
+
+    # the pieces timed in this process on the same frames
+    t0 = time.time()
+    m1, m2, Knew, rmap_here = build_maps(
+        {"fx": intr[0], "fy": intr[1], "cx": intr[2], "cy": intr[3],
+         **dict(zip(("k1", "k2", "k3", "k4"), FISHEYE_D))}, H, W, "fisheye")
+    map_s = time.time() - t0
+    gray_raw = [jpeg.read_jpeg(p) for p in sorted(glob.glob(os.path.join(rawdir, "*.jpg")))]
+    remap_ms, same = [], []
+    for raw, p in zip(gray_raw, prepared):
+        t0 = time.perf_counter()
+        und_img = camera.remap_linear(raw, m1, m2)
+        remap_ms.append(1e3 * (time.perf_counter() - t0))
+        same.append(np.array_equal(jpeg.decode_jpeg(jpeg.encode_jpeg(und_img)),
+                                   jpeg.read_jpeg(p)))
+    # the undistorted frame against the clean one seen through Knew: pixel
+    # p of the prepared frame is the clean frame's K @ inv(Knew) @ p
+    kx, ky = np.meshgrid(np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64))
+    back_x = ((kx - knew["cx"]) / knew["fx"] * intr[0] + intr[2]).astype(np.float32)
+    back_y = ((ky - knew["cy"]) / knew["fy"] * intr[1] + intr[3]).astype(np.float32)
+    inner = (slice(H // 4, 3 * H // 4), slice(W // 4, 3 * W // 4))
+    psnrs = []
+    for c, p in zip(clean, prepared):
+        want = camera.remap_linear(c, back_x, back_y)[inner].astype(np.float64)
+        mse = np.mean((jpeg.read_jpeg(p)[inner].astype(np.float64) - want) ** 2)
+        psnrs.append(float(10 * np.log10(255.0 ** 2 / max(mse, 1e-10))))
+    # codec times on this host: the fixture's rendered frame (smooth) and
+    # textured frames, whose entropy is nearer a camera's: 720 x 1280
+    # colour, and 1024 x 1024 gray (TUM-VIE's frame cameras)
+    g = clean[0]
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[:1024, :1280]
+    tex = 128 + 60 * np.sin(xx / 17.0) * np.cos(yy / 13.0)
+    tex = np.clip(tex[..., None] + rng.normal(0, 8, (1024, 1280, 3)), 0, 255).astype(np.uint8)
+    cases = {"rendered colour 4:2:0 q95 720x1280": np.stack([g, np.roll(g, 7, axis=1), 255 - g],
+                                                            -1),
+             "rendered gray q95 720x1280": g,
+             "textured colour 4:2:0 q95 720x1280": tex[:H],
+             "textured gray q95 1024x1024": np.ascontiguousarray(tex[:, :1024, 1])}
+    times = {}
+    for name, img in cases.items():
+        t0 = time.perf_counter()
+        data = jpeg.encode_jpeg(img)
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = jpeg.decode_jpeg(data)
+        t_dec = time.perf_counter() - t0
+        times[name] = (1e3 * t_dec, 1e3 * t_enc, len(data), back.shape)
+    sentinel = float((rmap == camera.FISHEYE_SENTINEL).all(-1).mean())
+    print(f"[prep] raw fixture: {len(pngs)} fisheye-distorted {H}x{W} JPEG frames (D "
+          f"{list(FISHEYE_D)}), {int(keep.sum())} of {len(keep)} events on the sensor after "
+          f"distortion; enerf_torch.tools.undistort_images --model fisheye: {tool_s:.2f} s with "
+          f"its start (a new process); Knew fx {knew['fx']:.4f} fy {knew['fy']:.4f} cx "
+          f"{knew['cx']:.4f} cy {knew['cy']:.4f} (K fx {intr[0]:.4f}); rectify map "
+          f"{list(rmap.shape)} {rmap.dtype}, sentinel share {sentinel:.6f}, max |map - "
+          f"this process's| {float(np.abs(rmap - rmap_here).max()):.3e}; the tool's frames equal "
+          f"this process's remap + encode: {sum(same)} of {len(same)}; their inner half against "
+          f"the clean frames seen through Knew: PSNR {[round(x, 2) for x in psnrs]} dB (min 30)")
+    print(f"[prep] on this host: map build (fisheye maps + the rectify map's Newton solve at "
+          f"{H}x{W}) {map_s:.3f} s; remap {np.mean(remap_ms):.2f} ms a frame (gray, "
+          f"{[round(x, 2) for x in remap_ms]}); "
+          + "; ".join(f"{k}: decode {d:.2f} ms, encode {e:.2f} ms a frame ({n} bytes)"
+                      for k, (d, e, n, _) in times.items()))
+    if not (all(same) and len(prepared) == len(pngs) == ESIM_FRAMES
+            and rmap.shape == (H, W, 2) and np.isfinite(rmap).all()
+            and float(np.abs(rmap - rmap_here).max()) == 0.0 and min(psnrs) > 30
+            and all(t[3] == cases[k].shape for k, t in times.items())):
+        raise AssertionError("[prep] the prepared directory is not what the tool should give")
+    return dict(tool_s=tool_s, map_s=map_s, remap_ms=float(np.mean(remap_ms)),
+                codec_ms={k: v[:2] for k, v in times.items()})
+
+
 def stereo_config(config, datadir, workspace, *extra):
     """A published tumvie / eds config as published, on a fixture: its
     train / val indices cut to the fixture's frames (the only cut),
@@ -2871,6 +3048,60 @@ def dp_window_case(mesh, workspace, C_thres):
                 losses=[aux["loss"] for _, aux in trainer.history])
 
 
+def dp_clip_case(mesh, workspace):
+    """Phase 23 (e) on one rank: the default path's config in frames mode
+    with --rand_pose 1 --clip_text (--fuse_steps 1): one data-parallel
+    frame step, then the rand-pose CLIP step on every rank, the ranks
+    checked bit-equal; rank 0 then takes one process's CLIP step from the
+    same state and shared draws.  index_add_ without atomics on both sides,
+    so that the two differ by the gradient's mean over the ranks alone."""
+    import warnings
+    import torch
+    from enerf_torch.data.provider import make_providers
+    from enerf_torch.parallel import mesh as dp
+    from enerf_torch.train.trainer import Trainer
+
+    cfg = default_config(workspace, "--events", "0", "--rand_pose", "1", "--clip_text",
+                         "a photo of a ball", "--fuse_steps", "1")
+    trainer = Trainer(cfg, workspace=workspace, mesh=mesh)
+    train, _ = make_providers(cfg, device=mesh.device, shards=mesh.world_size)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # ops without a deterministic form
+            trainer.train_step(train)  # batch 1: this rank's half of the frame rays
+            before = {k: v.detach().clone()
+                      for k, v in dp.replicated_tensors(trainer.state).items()}
+            gen, batch_i, step = trainer.generator.get_state(), train._batch_i, trainer.state.step
+            torch.cuda.synchronize()
+            t0 = time.time()
+            aux = trainer.train_step(train)  # batch 2: the rand pose, alike on every rank
+            torch.cuda.synchronize()
+            r = dict(rank=mesh.rank, rank_rays=train.num_rays, clip_rays=train.rand_pose_rays,
+                     clip_s=time.time() - t0, loss_clip=float(aux["loss_clip"]))
+            dp.assert_replicated(trainer.state, None, mesh)
+            if mesh.rank == 0:
+                one = Trainer(cfg, workspace=workspace + "_one", device=mesh.device)
+                one_train, _ = make_providers(cfg, device=mesh.device)
+                with torch.no_grad():
+                    for k, t in dp.replicated_tensors(one.state).items():
+                        t.copy_(before[k])
+                one.state.step = step
+                one.generator.set_state(gen)
+                one_train._batch_i = batch_i
+                ref = one.train_step(one_train)
+                after = dp.replicated_tensors(trainer.state)
+                rel = {k: float(torch.linalg.vector_norm((t - after[k]).double())
+                                / max(float(torch.linalg.vector_norm(t.double())), 1e-30))
+                       for k, t in dp.replicated_tensors(one.state).items()}
+                worst = max(rel, key=rel.get)
+                r.update(loss_clip_one=float(ref["loss_clip"]), worst_rel=rel[worst],
+                         worst=worst, tensors=len(rel))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return r
+
+
 def dp_rank_main_path(mesh, workspace, out_dir):
     """Phase 23 (a) and (c) on one rank: dp_compare, then one validation view
     through make_sharded_render against render_rays_march of the whole view
@@ -2891,6 +3122,7 @@ def dp_rank_main_path(mesh, workspace, out_dir):
                            ws)[2]
     r["window"] = [dp_window_case(mesh, os.path.join(workspace, f"window{c}"), c)
                    for c in (0.2, -1)]
+    r["clip"] = dp_clip_case(mesh, os.path.join(workspace, "clip"))
     v = val.val_views()[0]
     fused_mlp.fused_field_head.launches = 0
     torch.cuda.synchronize()
@@ -3019,6 +3251,19 @@ def phase_dp_gloo(workspace, datadir):
             ok = ok and rel_mean <= 1e-6
         if not ok:
             raise AssertionError(f"[dp-gloo] the data-parallel window disagrees: {w0}, {w1}")
+    c0, c1 = ranks[0]["clip"], ranks[1]["clip"]
+    print(f"[dp-gloo] (e) --events 0 --rand_pose 1 --clip_text on 2 ranks: frame rays "
+          f"{[c0['rank_rays'], c1['rank_rays']]} a rank, then the CLIP step on both (the "
+          f"config's {c0['clip_rays']} rays, one pose from the shared generator, gradients "
+          f"meaned): "
+          f"{[round(c0['clip_s'], 3), round(c1['clip_s'], 3)]} s, loss_clip "
+          f"{[c0['loss_clip'], c1['loss_clip']]}, the ranks bit-equal (assert_replicated); one "
+          f"process's CLIP step from the same state and draws: loss_clip "
+          f"{c0['loss_clip_one']}, the worst of {c0['tensors']} tensors {c0['worst']} within "
+          f"{c0['worst_rel']:.3e} by norm (tol 1e-6)")
+    if not (c0["loss_clip"] == c1["loss_clip"] and c0["worst_rel"] <= 1e-6
+            and abs(c0["loss_clip_one"] - c0["loss_clip"]) <= 1e-6 * abs(c0["loss_clip"])):
+        raise AssertionError(f"[dp-gloo] the data-parallel CLIP step disagrees: {c0}, {c1}")
 
     steps, sparse = 4, None
     for label, extra in (("as published", ()), ("with --remat_fixed 1", ("--remat_fixed", "1"))):
@@ -3118,6 +3363,7 @@ def main():
         torch.cuda.empty_cache()
         k1_frames = phase_frames_march(os.path.join(REPO, "build", "chip_smoke_frames_march"))
         tumvie_dir = phase_tumvie_fixture(os.path.join(REPO, "build", "chip_smoke_tumvie"))
+        phase_prep(tumvie_dir)
         gc.collect()
         torch.cuda.empty_cache()
         mocap = phase_stereo("tumvie", "mocapDesk2/mocapDesk2_enerf.txt", tumvie_dir,

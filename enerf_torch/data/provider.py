@@ -5,7 +5,8 @@ Counterpart of enerf_tpu/data/provider.py (reference nerf/provider.py):
   - the esim format (`load_esim_dataset`, `save_esim_dataset`, the image
     sources `resolve_image_dir`, the scene pose offsets, the workspace's
     transforms JSON), read and written with the port's own PNG codec
-    (utils/png.py), since the card has no OpenCV;
+    (utils/png.py) and JPEG decoder (utils/jpeg.py), since the card has
+    no OpenCV;
   - `FramesProvider`: frame supervision (num_rays random pixels of one
     random frame per step, optionally weighted by an error map; with
     rand_pose, every so many batches a random orbit pose's full ray grid
@@ -40,6 +41,7 @@ from enerf_torch.data.poses import (
 )
 from enerf_torch.data.rays import get_event_rays, get_rays_full, get_rays_sampled
 from enerf_torch.parallel import multihost
+from enerf_torch.utils.jpeg import read_jpeg, write_jpeg
 from enerf_torch.utils.png import read_png, resize_area, write_png
 
 
@@ -100,14 +102,61 @@ def resolve_image_dir(datadir, mode, e2vid=0, images_corrupted=False, default_di
     return default_dir, "clean"
 
 
-def read_image(path, out_dim_color, downscale=1):
-    """One PNG -> [H, W, C] float32 (8-bit images in [0, 1]), as the JAX
-    package's cv2 reader gives it: RGB (alpha dropped, gray repeated), an
-    INTER_AREA downscale, and luma when out_dim_color is 1.  Anything but a
-    PNG raises, naming the file."""
+def _is_jpeg(path):
+    return path.lower().endswith((".jpg", ".jpeg"))
+
+
+def read_unchanged(path):
+    """cv2.imread(path, IMREAD_UNCHANGED) of a PNG or JPEG file: gray as
+    [H, W], colour as [H, W, 3] BGR (PNGs with alpha [H, W, 4] BGRA).
+    Other formats raise, naming the file."""
+    if _is_jpeg(path):
+        return read_jpeg(path)
+    if path.lower().endswith(".png"):
+        return read_png(path)
+    raise ValueError(f"{path}: the port reads PNG and JPEG images only")
+
+
+def write_image(path, img):
+    """cv2.imwrite(path, img) for a .png or .jpg / .jpeg path: img is gray
+    [H, W], BGR [H, W, 3] or (PNG only) BGRA [H, W, 4], uint8 (PNG also
+    uint16); a JPEG at cv2's defaults (quality 95, 4:2:0)."""
+    img = np.asarray(img)
+    if _is_jpeg(path):
+        return write_jpeg(path, img)
     if not path.lower().endswith(".png"):
-        raise ValueError(f"{path}: the port reads PNG images only")
-    im = read_png(path)
+        raise ValueError(f"{path}: the port writes PNG and JPEG images only")
+    if img.ndim == 3 and img.shape[-1] in (3, 4):
+        img = np.concatenate([img[..., 2::-1], img[..., 3:]], axis=-1)
+    return write_png(path, img)
+
+
+# libpng's rgb_to_gray at cv2's (0.299, 0.587) in 15-bit fixed point: R, G, B
+_GRAY_RGB = np.array([9797, 19234, 3737], np.int64)
+
+
+def read_gray(path):
+    """cv2.imread(path, IMREAD_GRAYSCALE) of an 8-bit PNG or a JPEG: a
+    JPEG's Y plane (libjpeg's JCS_GRAYSCALE output); for a colour PNG
+    libpng's truncating rgb_to_gray, alpha dropped.  16-bit PNGs raise."""
+    if _is_jpeg(path):
+        return read_jpeg(path, gray=True)
+    im = read_unchanged(path)
+    if im.dtype != np.uint8:
+        raise NotImplementedError(f"{path}: grayscale reads of {im.dtype} PNGs are not "
+                                  "supported")
+    if im.ndim == 2:
+        return im
+    return ((im[..., 2::-1].astype(np.int64) @ _GRAY_RGB) >> 15).astype(np.uint8)
+
+
+def read_image(path, out_dim_color, downscale=1):
+    """One PNG or JPEG -> [H, W, C] float32 (8-bit images in [0, 1]), as the
+    JAX package's cv2 reader gives it: RGB (alpha dropped, gray repeated),
+    an INTER_AREA downscale, and luma when out_dim_color is 1.  Other
+    formats, and JPEG files outside the decoder's subset (utils/jpeg.py),
+    raise, naming the file."""
+    im = read_unchanged(path)
     im = im[..., 2::-1] if im.ndim == 3 else im[..., None].repeat(3, -1)
     if downscale > 1:
         im = resize_area(im, downscale)
@@ -316,15 +365,18 @@ class FramesProvider:
     it): < 0 never, 0 every batch, > 0 the batches whose count (from 1) is a
     multiple of rand_pose + 1 are rand-pose batches: a look-at orbit pose at
     rand_radius * U(1, 1.2), its full side x side ray grid (side =
-    max(floor(sqrt(num_rays)), 8), a 60 degree field of view) and
-    `rand_pose_side`, no images."""
+    max(floor(sqrt(rand_pose_rays)), 8), a 60 degree field of view) and
+    `rand_pose_side`, no images.  rand_pose_rays defaults to num_rays; a
+    data-parallel rank passes the config's global num_rays, as every rank
+    renders the whole rand-pose image."""
 
     def __init__(self, images, poses, intrinsics, num_rays=4096, steps_per_epoch=100,
                  error_map=False, stereo_views=None, rand_pose=-1, rand_radius=2.5,
-                 device="cpu"):
+                 rand_pose_rays=None, device="cpu"):
         self.device = torch.device(device)
         self.stereo_views = stereo_views
         self.rand_pose, self.rand_radius = int(rand_pose), float(rand_radius)
+        self.rand_pose_rays = num_rays if rand_pose_rays is None else int(rand_pose_rays)
         self._batch_i = 0
         self.H, self.W = images.shape[1:3]
         self.intrinsics = intrinsics
@@ -346,7 +398,7 @@ class FramesProvider:
         `draws`.  The pose is built on the device: no host sync."""
         u = draws if draws is not None else torch.rand(3, device=self.device,
                                                        generator=generator)
-        side = max(int(np.sqrt(self.num_rays)), 8)
+        side = max(int(np.sqrt(self.rand_pose_rays)), 8)
         r = self.rand_radius * (1.0 + 0.2 * u[0])
         theta = np.pi / 6 + (np.pi / 2 - np.pi / 6) * u[1]
         phi = 2 * np.pi * u[2]
@@ -362,13 +414,15 @@ class FramesProvider:
         ro, rd = get_rays_full(pose, (fx, fx, side / 2.0, side / 2.0), side, side)
         return {"rays_o": ro, "rays_d": rd, "rand_pose_side": side}
 
-    def train_step_batch(self, generator=None, **draws):
+    def train_step_batch(self, generator=None, pose_generator=None, **draws):
         """One frame batch (see frame_batch; `draws` hands in fi, inds,
-        inds_coarse, jitter), or a rand-pose batch at rand_pose's cadence."""
+        inds_coarse, jitter), or a rand-pose batch at rand_pose's cadence,
+        its pose drawn from `pose_generator` (a mesh's shared generator:
+        every rank draws the same pose) or else `generator`."""
         self._batch_i += 1
         if self.rand_pose == 0 or (self.rand_pose > 0
                                    and self._batch_i % (self.rand_pose + 1) == 0):
-            return self._rand_pose_batch(generator)
+            return self._rand_pose_batch(generator if pose_generator is None else pose_generator)
         fi, rays, batch = frame_batch(self.images, self.poses, self.intrinsics, self.H, self.W,
                                       self.num_rays, generator, error_map=self.error_map,
                                       **draws)
@@ -591,13 +645,15 @@ def make_providers(cfg, select_frames=None, device=None, shards=1):
     batch of that many data-parallel ranks (--mesh_shape), so the train
     provider samples batch_size_evs / shards event pairs (and their
     no-event pairs) and num_rays / shards frame rays; a split that is not
-    even raises.  That split is the per-step path's (fuse_steps 1): with
-    fuse_steps > 1 the ranks train in windows (train/chunk.py), where each
-    rank samples the config's whole batch, as each chip does in JAX's
-    chunk."""
+    even raises.  That split is the per-step path's (fuse_steps 1, or
+    frames mode with rand_pose, which the trainer keeps out of windows):
+    otherwise the ranks train in windows (train/chunk.py), where each rank
+    samples the config's whole batch, as each chip does in JAX's chunk.  A
+    rand pose's image is the config's num_rays on every rank."""
     device = resolve_device(device)
     batch_size_evs, num_rays = cfg.batch_size_evs, cfg.num_rays
-    if shards > 1 and cfg.fuse_steps <= 1:
+    per_step = cfg.fuse_steps <= 1 or (not cfg.events and cfg.rand_pose >= 0)
+    if shards > 1 and per_step:
         split = {}  # what the train provider samples
         if cfg.events:
             split["batch_size_evs"] = batch_size_evs
@@ -666,7 +722,8 @@ def make_providers(cfg, select_frames=None, device=None, shards=1):
     if not cfg.events:
         train = FramesProvider(train_images, poses, data["intrinsics"], num_rays=num_rays,
                                error_map=bool(cfg.error_map), rand_pose=cfg.rand_pose,
-                               rand_radius=cfg.radius, device=device)
+                               rand_radius=cfg.radius, rand_pose_rays=cfg.num_rays,
+                               device=device)
     else:
         train = EventProvider(
             events, hf_ts, hf_poses, data["intrinsics"], data.get("H_ev", data["H"]),

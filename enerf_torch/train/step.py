@@ -311,15 +311,21 @@ def clip_loss_fn(params, ss, batch, noise, text_feat, side, occ=None):
     return loss, {"loss_clip": loss}
 
 
-def train_step_clip(state, batch, ss, occ, text_feat, side, noise=None, generator=None):
+def train_step_clip(state, batch, ss, occ, text_feat, side, noise=None, generator=None,
+                    reduce_grads=None):
     """One rand-pose step: the CLIP loss of a side x side render, backward,
-    Adam + EMA on `state` (in place).  Returns the detached loss and
-    loss_clip."""
+    Adam + EMA on `state` (in place).  Under a data-parallel mesh every rank
+    runs the same step on the same pose, and `reduce_grads(params)` means
+    the gradients over the ranks before the update, so that the ranks stay
+    bit-equal where the backward's atomic adds sum in another order.
+    Returns the detached loss and loss_clip."""
     if noise is None:
         noise = draw_noise(ss, 0, generator, batch["rays_o"].device,
                            n_clip=batch["rays_o"].shape[0])
     state.zero_grad()
     loss, aux = clip_loss_fn(state.params, ss, batch, noise, text_feat, side, occ)
     loss.backward()
+    if reduce_grads is not None:
+        reduce_grads(state.params.values())
     state.apply_updates()
     return {"loss": loss.detach(), "loss_clip": aux["loss_clip"].detach()}

@@ -28,8 +28,10 @@ Counterpart of enerf_tpu/train/trainer.py (reference nerf/utils.py:289-1416):
     occupancy update through `update_occupancy_sharded`, the eval renders
     through `shard_rays`, the error map fed every rank's cells and losses
     in rank order; a shared generator (alike on every rank: the occupancy
-    update's full phase, the step's noise) and a per-rank one (the batch,
-    the occupancy resampling); the ranks' state checked bit-equal after
+    update's full phase, the step's noise, the rand pose) and a per-rank
+    one (the batch, the occupancy resampling); a rand-pose batch's CLIP
+    step taken on every rank with the gradients meaned over the ranks
+    (JAX's runs on the replicated state); the ranks' state checked bit-equal after
     every epoch; rank 0 alone writes (log, args, checkpoints, diagnostics,
     profile, images, mesh);
   - `evaluate` (PSNR, SSIM, LPIPS alex / vgg on the trainer's device and,
@@ -101,10 +103,11 @@ class Trainer:
         self.primary = multihost.is_primary()  # rank 0 writes the files
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.cfg = check_supported(cfg)
-        if mesh is not None and cfg.rand_pose >= 0:
+        if mesh is not None and cfg.rand_pose >= 0 and cfg.multihost:
             raise NotImplementedError(
-                "--rand_pose with a data-parallel mesh: the CLIP step scores one whole "
-                "image, which the data-parallel step does not split; run it on one process")
+                "--rand_pose with --multihost: the JAX trainer folds each host's batch key "
+                "(enerf_tpu/train/trainer.py:472-475), so its hosts would draw different "
+                "rand poses; run it with --mesh_shape or on one process")
         # reference main_nerf.py:46-52: --ff/--tcnn force half precision;
         # here they select the block-packed encoder + bf16 compute, and
         # --ff with the march (-O) selects the fused head (kernel K1);
@@ -423,7 +426,11 @@ class Trainer:
                 self.occupancy = update_occupancy_sharded(
                     self.state.params, self.static, self.occupancy, self.generator,
                     self.rank_generator, mesh=self.mesh, **kw)
-        batch = provider.train_step_batch(self.rank_generator)
+        # a rand pose is drawn from the shared generator: under a mesh every
+        # rank takes the same CLIP step (JAX's runs on the replicated state)
+        pose_kw = ({"pose_generator": self.generator}
+                   if getattr(provider, "rand_pose", -1) >= 0 else {})
+        batch = provider.train_step_batch(self.rank_generator, **pose_kw)
         warm = step < cfg.march_warmup
         ss = warm_statics(self.ss) if warm else self.ss
         occ = self.occupancy.occ_packed if self.occupancy is not None else None
@@ -432,8 +439,10 @@ class Trainer:
                 raise ValueError("--rand_pose >= 0 gives rand-pose batches, which need "
                                  "--clip_text (the CLIP guidance's text)")
             side = batch.pop("rand_pose_side")
+            reduce = (None if self.mesh is None
+                      else lambda params: dp.all_reduce_grads(params, self.mesh))
             return train_step_clip(self.state, batch, ss, occ, self.clip_guidance.text_feat,
-                                   side, generator=self.generator)
+                                   side, generator=self.generator, reduce_grads=reduce)
         errmap = cfg.error_map and hasattr(provider, "update_error_map")
         if self.mesh is None:
             step_fn = train_step_events if cfg.events else train_step_frames

@@ -2,9 +2,9 @@
 and OpenCV's INTER_AREA downscale by an integer factor, in numpy.
 
 The port reads and writes images without OpenCV, which the card's Python
-does not have.  The writer takes 8-bit grayscale ([H, W] or [H, W, 1]) or
-RGB ([H, W, 3]) arrays and writes one IDAT chunk, filter type 0 on every
-row.  The reader returns what `cv2.imread(path, cv2.IMREAD_UNCHANGED)`
+does not have.  The writer takes 8- or 16-bit grayscale ([H, W] or
+[H, W, 1]), RGB ([H, W, 3]) or RGBA ([H, W, 4]) arrays and writes one
+IDAT chunk, filter type 0 on every row.  The reader returns what `cv2.imread(path, cv2.IMREAD_UNCHANGED)`
 returns for non-interlaced gray, RGB, gray+alpha and RGBA files at 8 and
 16 bits: gray as [H, W], colour as [H, W, 3] BGR, gray+alpha and RGBA as
 [H, W, 4] BGRA (gray repeated), uint8 or uint16.  It undoes all five row
@@ -27,22 +27,26 @@ def _chunk(tag, data):
 
 
 def encode_png(img8):
-    """uint8 [H, W], [H, W, 1] or [H, W, 3] -> PNG file bytes."""
+    """uint8 or uint16 [H, W], [H, W, 1], [H, W, 3] (RGB) or [H, W, 4]
+    (RGBA) -> PNG file bytes."""
     a = np.asarray(img8)
-    if a.dtype != np.uint8:
-        raise TypeError(f"encode_png takes uint8, got {a.dtype}")
+    if a.dtype not in (np.uint8, np.uint16):
+        raise TypeError(f"encode_png takes uint8 or uint16, got {a.dtype}")
     if a.ndim == 3 and a.shape[-1] == 1:
         a = a[..., 0]
     if a.ndim == 2:
         color = 0  # grayscale
-    elif a.ndim == 3 and a.shape[-1] == 3:
-        color = 2  # RGB
+    elif a.ndim == 3 and a.shape[-1] in (3, 4):
+        color = 2 if a.shape[-1] == 3 else 6  # RGB / RGBA
     else:
-        raise ValueError(f"encode_png takes [H, W], [H, W, 1] or [H, W, 3], got {a.shape}")
+        raise ValueError(f"encode_png takes [H, W], [H, W, 1], [H, W, 3] or [H, W, 4], "
+                         f"got {a.shape}")
     H, W = a.shape[:2]
-    rows = np.ascontiguousarray(a).reshape(H, -1)
+    depth = 8 * a.dtype.itemsize
+    rows = np.ascontiguousarray(a.astype(">u2") if depth == 16 else a).reshape(H, -1)
+    rows = rows.view(np.uint8).reshape(H, -1)
     raw = np.concatenate([np.zeros((H, 1), np.uint8), rows], axis=1).tobytes()
-    header = struct.pack(">IIBBBBB", W, H, 8, color, 0, 0, 0)
+    header = struct.pack(">IIBBBBB", W, H, depth, color, 0, 0, 0)
     return (_SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(raw, 6))
             + _chunk(b"IEND", b""))
 

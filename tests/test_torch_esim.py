@@ -110,10 +110,15 @@ def test_png_reader_refuses_what_it_cannot_decode(tmp_path):
         open(path, "wb").write(data)
         with pytest.raises(ValueError, match=name):
             png.read_png(path)
+    # a JPEG frame reads as cv2 reads it (utils/jpeg.py); other formats raise
     jpg = str(tmp_path / "frame.jpg")
     cv2.imwrite(jpg, np.full((8, 8), 128, np.uint8))
-    with pytest.raises(ValueError, match="frame.jpg"):
-        tprov.read_image(jpg, 1)
+    np.testing.assert_array_equal(tprov.read_image(jpg, 1)[..., 0],
+                                  cv2.imread(jpg, cv2.IMREAD_UNCHANGED) / np.float32(255.0))
+    bmp = str(tmp_path / "frame.bmp")
+    cv2.imwrite(bmp, np.full((8, 8), 128, np.uint8))
+    with pytest.raises(ValueError, match="frame.bmp"):
+        tprov.read_image(bmp, 1)
 
 
 @pytest.mark.parametrize("factor", [2, 3])

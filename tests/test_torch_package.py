@@ -34,7 +34,7 @@ def test_package_imports_no_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'jaxlib', 'enerf_tpu', 'cv2', 'h5py'))\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'enerf_tpu', 'cv2', 'h5py', 'PIL'))\n"
         "assert len(mods) >= 32, mods\n"
         "assert {'enerf_torch.ops.hashgrid', 'enerf_torch.ops.composite',\n"
         "        'enerf_torch.ops.group_gather', 'enerf_torch.render.renderer',\n"
@@ -44,7 +44,10 @@ def test_package_imports_no_jax():
         "        'enerf_torch.train.lpips', 'enerf_torch.utils.plotting',\n"
         "        'enerf_torch.utils.profiling', 'enerf_torch.viewer',\n"
         "        'enerf_torch.tools.render', 'enerf_torch.cli', 'enerf_torch.parallel.mesh',\n"
-        "        'enerf_torch.parallel.multihost'} <= set(mods), mods\n"
+        "        'enerf_torch.parallel.multihost', 'enerf_torch.utils.jpeg',\n"
+        "        'enerf_torch.utils.camera', 'enerf_torch.tools.undistort_images',\n"
+        "        'enerf_torch.tools.numpys_to_h5', 'enerf_torch.tools.inspect_h5',\n"
+        "        'enerf_torch.tools.psnrs_corr', 'enerf_torch.tools.raw_to_png'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
