@@ -31,9 +31,10 @@ Phases (one line each; any failure exits non-zero before the result lines):
      through train(train, val, 1): a checkpoint and the affine-corrected
      evaluation of 2 val views with LPIPS (alex, vgg) on the card, after
      the run diagnostics; one log line a window, state.step 48,
-     iter_density 3, M1 launched twice a step and no march host sync in
-     the steps; then a new Trainer resumed from the 'latest' checkpoint
-     must hold the same params, EMA and step;
+     iter_density 3, M1 launched once a step (both renders of the event
+     pair in one march) and no march host sync in the steps; then a new
+     Trainer resumed from the 'latest' checkpoint must hold the same
+     params, EMA and step;
   5. inference: one validation view through the alive-ray inference
      renderer (M1 a window); the same view with the plain march in M1's
      place within 1e-5, and the view's first and last march windows held
@@ -44,9 +45,17 @@ Phases (one line each; any failure exits non-zero before the result lines):
   6b. M1 (the march kernel) against its plain version `_march`: valid
      identical and ts / dts / t_end bit-equal on >= 99.99% of rays (each
      differing ray printed with its first differing slot) at the main
-     path's 4096 rays x 64 samples (a main-path batch through the trained
-     grid) and bench.py's 8192 x 32 (the ball bitfield), there also with
-     dt_gamma 1/256; kernel, plain and bound times;
+     path's pair 8192 rays x 64 samples (both renders of a main-path batch
+     through the trained grid, the step's one launch), one render's 4096 x
+     64, and bench.py's 8192 x 32 (the ball bitfield), there also with
+     dt_gamma 1/256; kernel, plain and bound times, lookups a ray (mean,
+     max), ms per link of the longest chain, the occupied-superblock share
+     of each cascade, M1's pre-pass against its plain version and its
+     time; where a copy of an older march source with the nested-loop
+     kernel's C interface sits at build/march_rays_580e741.cu (git show
+     580e741:enerf_torch/csrc/march_rays.cu), that kernel in turns with M1
+     at the pair (its two launches), one render and, in phase 5, the first
+     and last infer windows;
   6c. window: one main-path window eagerly under
      torch.cuda.set_sync_debug_mode("error") (no host sync), then from one
      state and generator states the graphed window against the eager one
@@ -81,8 +90,9 @@ Phases (one line each; any failure exits non-zero before the result lines):
  10. frames on the march: --ff -O --event_only 0 --march_warmup 4, 8 steps:
      the trainer's mark_untrained_grid from the first frame camera (its
      share of marked cells > 0 and equal to a direct call's), 4 fixed-step
-     steps with remat, 4 march steps through K1 and M1 (12 launches each,
-     no march host sync); loss_frames finite at every step;
+     steps with remat, 4 march steps through K1 (12 launches, one a
+     render) and M1 (8: the event pair's one march and the frame render's),
+     no march host sync; loss_frames finite at every step;
  11. esim fixture: a 480 x 640, 6-frame esim directory written by the
      port's save_esim_dataset under build/chip_smoke_esim/ (images/,
      images_corrupted/ with seeded noise, events/, poses_all.txt,
@@ -861,8 +871,8 @@ def phase_main_path(workspace):
                              f"{trainer.occupancy.iter_density} != 3")
     if launches < 2 * steps:
         raise AssertionError(f"K1 launched {launches} times in {steps} steps")
-    if step_m1 != 2 * steps or step_syncs:
-        raise AssertionError(f"the steps launched M1 {step_m1} times (2 a step expected) and "
+    if step_m1 != steps or step_syncs:
+        raise AssertionError(f"the steps launched M1 {step_m1} times (1 a step expected) and "
                              f"took {step_syncs} march host syncs (0 expected)")
     if k2_launches:
         raise AssertionError("the main path's table backward is index_add_, yet K2 launched")
@@ -896,7 +906,7 @@ def phase_breakdown(trainer, train):
     loop's, which overlaps host and device)."""
     import torch
     from enerf_torch.ops.aabb import aabb_tensor, near_far_from_aabb
-    from enerf_torch.render.march import composite_from_march, march_rays
+    from enerf_torch.render.march import composite_from_march, march_rays, march_rays_pair
     from enerf_torch.render.occupancy import clone_occupancy, update_occupancy
     from enerf_torch.train import losses
     from enerf_torch.train.step import draw_noise
@@ -917,16 +927,18 @@ def phase_breakdown(trainer, train):
     N = batch["pols"].shape[0]
     noise = draw_noise(ss, N, trainer.generator, trainer.device)
     state.zero_grad()
-    syncs0 = march_rays.host_syncs
+    syncs0, launches0 = march_rays.host_syncs, march_rays.launches
+    rays = [(batch[f"rays_evs_o{i}"], batch[f"rays_evs_d{i}"]) for i in (1, 2)]
+    near_far = [near_far_from_aabb(o, d, aabb_tensor(fs.bound, o.device), ss.min_near)
+                for o, d in rays]
+    # the step's one march of both renders (train/step.py:_render_pair_march)
+    marched = timed("march", lambda: march_rays_pair(
+        *zip(*rays), occ, *zip(*near_far), jitter=(noise["jitter1"], noise["jitter2"]),
+        num_samples=ss.march_samples, max_steps=ss.max_steps,
+        cascades=trainer.occupancy.density_grid.shape[0], bound=fs.bound,
+        dt_gamma=ss.dt_gamma, perturb=True))
     images = []
-    for i in (1, 2):
-        o, d = batch[f"rays_evs_o{i}"], batch[f"rays_evs_d{i}"]
-        nears, fars = near_far_from_aabb(o, d, aabb_tensor(fs.bound, o.device), ss.min_near)
-        ts, dts, valid = timed("march", lambda: march_rays(
-            o, d, occ, nears, fars, jitter=noise[f"jitter{i}"],
-            num_samples=ss.march_samples, max_steps=ss.max_steps,
-            cascades=trainer.occupancy.density_grid.shape[0], bound=fs.bound,
-            dt_gamma=ss.dt_gamma, perturb=True))
+    for (o, d), (nears, fars), (ts, dts, valid) in zip(rays, near_far, marched):
         out = timed("encode + K1 + composite (forward)", lambda: composite_from_march(
             state.params, fs, o, d, ts, dts, valid, nears, fars,
             bg_color=noise["bg"].expand(N, ss.out_dim_color),
@@ -947,7 +959,8 @@ def phase_breakdown(trainer, train):
         density_scale=trainer.cfg.density_scale, density_thresh=trainer.cfg.density_thresh))
     print("[breakdown] one step, ms (host clock, synchronized): "
           + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
-          + f"; march host syncs {march_rays.host_syncs - syncs0} (2 marches)")
+          + f"; march host syncs {march_rays.host_syncs - syncs0}, M1 launches "
+          f"{march_rays.launches - launches0} (one march of both renders)")
 
 
 def phase_inference(trainer, val):
@@ -969,8 +982,8 @@ def phase_inference(trainer, val):
     M.march_rays.host_syncs = 0
     kernel, windows = M.launch_kernel, []
 
-    def recording(*a, **kw):  # keeps each window's inputs
-        windows.append(([x.clone() for x in a], dict(kw)))
+    def recording(*a, **kw):  # keeps each window's inputs (the call's pre-pass aside)
+        windows.append(([x.clone() for x in a], {k: v for k, v in kw.items() if k != "aux"}))
         return kernel(*a, **kw)
 
     M.launch_kernel = recording
@@ -980,7 +993,8 @@ def phase_inference(trainer, val):
         img, depth = trainer.render_view(v["pose"], v["intrinsics"], v["H"], v["W"])
         wall = time.time() - t0
         launches, syncs = fused_mlp.fused_field_head.launches, M.march_rays.host_syncs
-        M.launch_kernel = M._march  # the plain march on the same CUDA tensors
+        # the plain march on the same CUDA tensors
+        M.launch_kernel = lambda *a, aux=None, **kw: M._march(*a, **kw)
         t0 = time.time()
         img_p, depth_p = trainer.render_view(v["pose"], v["intrinsics"], v["H"], v["W"])
         plain_wall = time.time() - t0
@@ -1003,18 +1017,22 @@ def phase_inference(trainer, val):
           f"{'ok' if same else 'FAIL'}")
     if not same:
         raise AssertionError("the inference view with M1 disagrees with the plain march's")
-    out = {}
+    out, old = {}, old_march()
     for tag, i in (("first", 0), ("last", len(windows) - 1)):
         args, kw = windows[i]
         out[tag] = m1_compare(f"infer window {i + 1} of {len(windows)}", *args, **kw)
+        if old is not None:
+            out[tag]["old"] = m1_against_old(f"infer window {i + 1}", old, out[tag], *args, **kw)
+    if old is None:
+        print(f"[m1] the old march kernel not measured: no copy of its source at "
+              f"{os.path.relpath(OLD_M1, REPO)}")
     return out
 
 
 # M1's operations a (ray, lookup) pair, counted from the kernel's lookup()
-# and find_cell() (csrc/march_rays.cu's note): 94 float32 operations (87
-# in the lookup, 7 in a skip; log2f / exp2f / ceilf one each) and 39
+# and its loop (csrc/march_rays.cu's note): 43 float32 operations and ~30
 # integer ones, all charged at the float32 rate
-M1_OPS_PER_LOOKUP = 94 + 39
+M1_OPS_PER_LOOKUP = 43 + 30
 
 
 def m1_bound(N, S, cascades, lookups):
@@ -1033,18 +1051,26 @@ def m1_bound(N, S, cascades, lookups):
 def m1_compare(tag, o, d, bits, nears, fars, t0, **kw):
     """M1 against `_march` on the same inputs: valid identical, and the
     share of rays whose ts, dts and t_end are bit-equal (>= 99.99%); every
-    differing ray printed with its first differing slot.  Returns the
-    kernel line's numbers."""
+    differing ray printed with its first differing slot; M1's pre-pass
+    equal to its plain version.  The kernel and the pre-pass are timed
+    apart, from CUDA graph replays (the kernel alone is shorter than the
+    host's enqueue).  Returns the kernel line's numbers, with lookups a ray
+    (the plain version's count), ms per link of the longest chain and the
+    occupied share of each cascade's superblocks."""
     import torch
     from enerf_torch.render import march as M
 
     def bits_of(x):
         return x.contiguous().view(torch.int32)
 
-    got = M.launch_kernel(o, d, bits, nears, fars, t0, **kw)
+    cas, bound = kw["cascades"], kw["bound"]
+    aux = M.march_prepass(bits, cas, bound)
+    aux_same = bool(torch.equal(aux, M.march_aux_reference(bits, cas, bound)))
+    got = M.launch_kernel(o, d, bits, nears, fars, t0, aux=aux, **kw)
     lookups0 = M.march_rays.lookups
     ref = M._march(o, d, bits, nears, fars, t0, **kw)
     lookups = M.march_rays.lookups - lookups0
+    ray_lookups = M.march_rays.ray_lookups
     torch.cuda.synchronize()
     N, S = got[0].shape
     valid_same = bool(torch.equal(got[2], ref[2]))
@@ -1064,29 +1090,122 @@ def m1_compare(tag, o, d, bits, nears, fars, t0, **kw):
               f"{slot(got) if j >= 0 else ''}, plain {slot(ref) if j >= 0 else ''}, t_end "
               f"{float(got[3][i])} vs {float(ref[3][i])}")
     max_abs = max(float((got[k].float() - ref[k].float()).abs().max()) for k in (0, 1, 3))
-    ms = time_ms(lambda: M.launch_kernel(o, d, bits, nears, fars, t0, **kw), iters=20)
+    ms = graph_ms(lambda: M.launch_kernel(o, d, bits, nears, fars, t0, aux=aux, **kw),
+                  iters=20)
+    prepass_ms = graph_ms(lambda: M.march_prepass(bits, cas, bound), iters=20)
     plain_ms = time_ms(lambda: M._march(o, d, bits, nears, fars, t0, **kw), iters=2, warmup=1)
-    bound_ms, bound_by, nbytes = m1_bound(N, S, kw["cascades"], lookups)
-    ok = valid_same and share >= 0.9999
+    bound_ms, bound_by, nbytes = m1_bound(N, S, cas, lookups)
+    mean_l, max_l = float(ray_lookups.float().mean()), int(ray_lookups.max())
+    occupied = (bits.view(cas, -1, 2) != 0).any(-1).float().mean(1).tolist()
+    ok = valid_same and share >= 0.9999 and aux_same
     print(f"[m1] {tag}: {N} rays x {S} samples, {int(ref[2].sum())} valid, {lookups} lookups "
-          f"({lookups / N:.1f} a ray): valid identical {valid_same}, rays bit-equal "
-          f"{share:.6f} ({N - int(ray_same.sum())} differ), max |diff| {max_abs:.3e} -> "
-          f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-          f"{bound_ms:.5f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, {lookups} x "
-          f"{M1_OPS_PER_LOOKUP} ops), share of bound {bound_ms / ms:.2%}")
+          f"(a ray: mean {mean_l:.2f}, max {max_l}): valid identical {valid_same}, rays "
+          f"bit-equal {share:.6f} ({N - int(ray_same.sum())} differ), max |diff| {max_abs:.3e}, "
+          f"pre-pass equal to its plain version {aux_same} -> {'ok' if ok else 'FAIL'}; kernel "
+          f"{ms:.4f} ms ({ms * 1e3 / max(max_l, 1):.3f} us a link of the longest chain), "
+          f"pre-pass {prepass_ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by "
+          f"{bound_by} ({nbytes / 1e6:.2f} MB, {lookups} x {M1_OPS_PER_LOOKUP} ops), share of "
+          f"bound {bound_ms / ms:.2%}; occupied superblocks a cascade "
+          f"{[round(x, 4) for x in occupied]}")
     if not ok:
         raise AssertionError(f"M1 disagrees with its plain version at {tag}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None, share_of_bound=bound_ms / ms,
-                rays_bit_equal=share, lookups=lookups)
+                rays_bit_equal=share, lookups=lookups, lookups_mean=mean_l, lookups_max=max_l,
+                ms_per_link=ms / max(max_l, 1), prepass_ms=prepass_ms,
+                occupied_superblocks=occupied)
+
+
+# The nested-loop march kernel of commit 580e741, for a measuring call
+# only: a copy of its source (git show 580e741:enerf_torch/csrc/march_rays.cu)
+# at this path is built and timed beside M1 in turns; without the file the
+# comparison is skipped.
+OLD_M1 = os.path.join(REPO, "build", "march_rays_580e741.cu")
+
+
+def old_march():
+    """A launcher of the old march kernel (its C interface) built from
+    OLD_M1, or None."""
+    import ctypes
+    import numpy as np
+    import torch
+    from enerf_torch.ops import cuda_build
+    from enerf_torch.render import march as M
+    if not os.path.exists(OLD_M1):
+        return None
+    lib = os.path.splitext(OLD_M1)[0] + ".so"
+    subprocess.run([cuda_build._nvcc(), "-gencode", cuda_build.ARCH, "-std=c++17", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-o", lib, OLD_M1], check=True)
+    fn = ctypes.CDLL(lib).march_rays_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(o, d, bits, nears, fars, t0, *, num_samples, max_steps, cascades, bound,
+               dt_gamma):
+        N = o.shape[0]
+        ts, dts = (torch.empty(N, num_samples, device="cuda") for _ in range(2))
+        valid = torch.empty(N, num_samples, dtype=torch.bool, device="cuda")
+        t_end = torch.empty(N, device="cuda")
+        dt_min = np.float32(2.0 * M.SQRT3 / max_steps)
+        k = M.emit_k(max_steps) if dt_gamma == 0.0 else 1
+        err = fn(o.data_ptr(), d.data_ptr(), bits.data_ptr(), nears.data_ptr(),
+                 fars.data_ptr(), t0.data_ptr(), ts.data_ptr(), dts.data_ptr(),
+                 valid.data_ptr(), t_end.data_ptr(), N, num_samples, k, int(dt_gamma == 0.0),
+                 cascades, float(dt_min),
+                 float(np.float32(2.0 * M.SQRT3 * 2 ** (cascades - 1) / M.GRID_SIZE)),
+                 float(np.float32(dt_gamma)), float(np.float32(bound)),
+                 float(np.float32(1.0) / dt_min), float(M._inv_hm1()),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the old march kernel failed to launch: cudaError {err}")
+        return ts, dts, valid, t_end
+    return launch
+
+
+def m1_against_old(tag, old_launch, m1, o, d, bits, nears, fars, t0, launches=1, **kw):
+    """The old march kernel (one launch a render: `launches` of them) and
+    M1 (one launch for all the rays, its pre-pass included) in turns on the
+    same inputs: old, M1, M1, old, from CUDA graph replays; the old
+    kernel's outputs must equal M1's bit for bit.  `m1`: m1_compare's
+    numbers."""
+    import torch
+    from enerf_torch.render import march as M
+
+    parts = [slice(i * o.shape[0] // launches, (i + 1) * o.shape[0] // launches)
+             for i in range(launches)]
+
+    def old():
+        return [old_launch(o[p], d[p], bits, nears[p], fars[p], t0[p], **kw) for p in parts]
+
+    got, new = old(), M.launch_kernel(o, d, bits, nears, fars, t0, **kw)
+    same = all(torch.equal(torch.cat([g[k] for g in got]).view(torch.uint8),
+                           new[k].contiguous().view(torch.uint8)) for k in range(4))
+    times = {"old": [], "m1": []}
+    for side in ("old", "m1", "m1", "old"):
+        times[side].append(graph_ms(old if side == "old" else lambda: M.launch_kernel(
+            o, d, bits, nears, fars, t0, **kw), iters=10))
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    link = 1e3 / max(m1["lookups_max"], 1)
+    print(f"[m1] {tag}, in turns with the old march kernel ({launches} launch(es)): old "
+          f"{ms['old']:.4f} ms ({ms['old'] * link:.3f} us a link, share of bound "
+          f"{m1['bound_ms'] / ms['old']:.2%}), M1 {ms['m1']:.4f} ms with its pre-pass "
+          f"({ms['m1'] * link:.3f} us a link, {m1['bound_ms'] / ms['m1']:.2%}): "
+          f"{ms['old'] / ms['m1']:.2f}x; longest chain {m1['lookups_max']} lookups; the old "
+          f"kernel's outputs {'bit-equal to' if same else 'DIFFER from'} M1's")
+    if not same:
+        raise AssertionError(f"the old march kernel and M1 disagree at {tag}")
+    return dict(old_ms=ms["old"], m1_ms=ms["m1"], old_runs=times["old"],
+                m1_runs=times["m1"], old_share_of_bound=m1["bound_ms"] / ms["old"])
 
 
 def phase_march_kernel(trainer, train):
-    """M1 against its plain version at the main path's shape (4096 event
-    rays x 64 samples of a main-path batch, jittered, through the trained
-    occupancy grid) and at bench.py's (8192 rays x 32 samples from (0, 0,
-    -2.5) in random directions, the ball bitfield), the latter also with
-    dt_gamma 1/256 (one sample a lookup)."""
+    """M1 against its plain version at the main path's shapes (both renders
+    of a main-path batch, 8192 event rays x 64 samples, jittered, through
+    the trained occupancy grid: the step's one launch; and the first
+    render's 4096 alone) and at bench.py's (8192 rays x 32 samples from
+    (0, 0, -2.5) in random directions, the ball bitfield), the latter also
+    with dt_gamma 1/256 (one sample a lookup)."""
     import torch
     from enerf_torch.ops.aabb import aabb_tensor, near_far_from_aabb
     from enerf_torch.render.march import SQRT3
@@ -1095,16 +1214,30 @@ def phase_march_kernel(trainer, train):
     gen = torch.Generator(device="cuda").manual_seed(5)
     ss = trainer.ss
     batch = train.train_step_batch(gen)
-    o, d = batch["rays_evs_o1"].contiguous(), batch["rays_evs_d1"].contiguous()
-    nears, fars = near_far_from_aabb(o, d, aabb_tensor(trainer.static.bound, "cuda"),
-                                     ss.min_near)
-    t0 = nears + (2.0 * SQRT3 / ss.max_steps) * torch.rand(o.shape[0], device="cuda",
-                                                           generator=gen)
+    renders = []
+    for i in (1, 2):
+        o, d = batch[f"rays_evs_o{i}"].contiguous(), batch[f"rays_evs_d{i}"].contiguous()
+        nears, fars = near_far_from_aabb(o, d, aabb_tensor(trainer.static.bound, "cuda"),
+                                         ss.min_near)
+        t0 = nears + (2.0 * SQRT3 / ss.max_steps) * torch.rand(o.shape[0], device="cuda",
+                                                               generator=gen)
+        renders.append((o, d, nears, fars, t0))
     occ = trainer.occupancy
-    out = {"main": m1_compare(
-        "main path", o, d, occ.occ_packed, nears, fars, t0, num_samples=ss.march_samples,
-        max_steps=ss.max_steps, cascades=occ.density_grid.shape[0],
-        bound=trainer.static.bound, dt_gamma=ss.dt_gamma)}
+    kw = dict(num_samples=ss.march_samples, max_steps=ss.max_steps,
+              cascades=occ.density_grid.shape[0], bound=trainer.static.bound,
+              dt_gamma=ss.dt_gamma)
+    old = old_march()
+    o, d, nears, fars, t0 = (torch.cat(x) for x in zip(*renders))
+    out = {"pair": m1_compare("main path, both renders", o, d, occ.occ_packed, nears, fars, t0,
+                              **kw)}
+    if old is not None:  # the step's two launches before, its one launch now
+        out["pair"]["old"] = m1_against_old("main path, both renders", old, out["pair"], o, d,
+                                            occ.occ_packed, nears, fars, t0, launches=2, **kw)
+    o, d, nears, fars, t0 = renders[0]
+    out["main"] = m1_compare("main path, one render", o, d, occ.occ_packed, nears, fars, t0, **kw)
+    if old is not None:
+        out["main"]["old"] = m1_against_old("main path, one render", old, out["main"], o, d,
+                                            occ.occ_packed, nears, fars, t0, **kw)
     n = 8192
     d = torch.randn(n, 3, device="cuda", generator=gen)
     d = d / d.norm(dim=-1, keepdim=True)
@@ -1276,7 +1409,7 @@ def phase_k2_path():
     from enerf_torch.models.field import FieldStatic, init_field_params
     from enerf_torch.ops import scatter_accum as sa
     from enerf_torch.render.march import march_rays, render_rays_march
-    from enerf_torch.render.occupancy import ball_bitfield
+    from enerf_torch.render.occupancy import ball_bitfield, pack_bitfield
     from enerf_torch.train import losses
     from enerf_torch.train.state import TrainState
 
@@ -1287,7 +1420,7 @@ def phase_k2_path():
     o = torch.tensor([[0.0, 0.0, -2.5]], device=dev).expand(n_rays, 3)
     pols = torch.ones(n_rays, device=dev)
     bg = torch.full((n_rays, 1), 0.5, device=dev)
-    bitfield = ball_bitfield(device=dev)
+    bitfield = pack_bitfield(ball_bitfield(device=dev))
     noise = [(torch.rand(n_rays, device=dev, generator=gen),
               torch.rand(n_rays, device=dev, generator=gen)) for _ in range(steps)]
     runs, raw_log = {True: [], False: []}, []  # raw_log: K2's inputs of step 1, unformed
@@ -1769,7 +1902,8 @@ def phase_default_breakdown(trainer, train):
 def phase_march_warmup(workspace):
     """--ff -O --event_only 0 --march_warmup 4: the untrained cells marked
     from the frame poses, steps 0-3 on the fixed-step renderer with remat
-    (no K1), steps 4-7 on the march (K1 once per render, 3 renders)."""
+    (no K1), steps 4-7 on the march (K1 once per render, 3 renders; M1 once
+    for the event pair, once for the frame render)."""
     import numpy as np
     import torch
     from enerf_torch.data.provider import make_providers
@@ -1803,13 +1937,13 @@ def phase_march_warmup(workspace):
           f"{untrained} of the grid from {len(train.train_poses)} frame camera "
           f"({one_cam} by a direct call on the same pose); "
           f"loss_frames per step {[f'{x:.4e}' for x in lf]}; "
-          f"K1 launches {launches}, M1 launches {march_rays.launches} (3 renders x 4 march "
-          f"steps = 12 each); march host syncs {march_rays.host_syncs}")
+          f"K1 launches {launches} (3 renders x 4 march steps = 12), M1 launches "
+          f"{march_rays.launches} (2 marches x 4 = 8); march host syncs {march_rays.host_syncs}")
     if not (len(lf) == 8 and np.isfinite(lf).all()):
         raise AssertionError(f"loss_frames not finite at every step: {lf}")
     # the march shows in M1's launches (the plain version's host syncs did,
     # before the march was a kernel)
-    if launches != 12 or march_rays.launches != 12 or march_rays.host_syncs:
+    if launches != 12 or march_rays.launches != 8 or march_rays.host_syncs:
         raise AssertionError(f"expected 4 warm steps without K1 and M1 and 4 march steps with "
                              f"them: K1 launches {launches}, M1 launches "
                              f"{march_rays.launches}, host syncs {march_rays.host_syncs}")
@@ -2596,7 +2730,7 @@ def phase_background(workspace):
                                                                generator=gen)
     rd = rd / rd.norm(dim=-1, keepdim=True)
     near, _ = near_far_from_aabb(ro, rd, aabb_tensor(st.bound, "cuda"), cfg.min_near)
-    params, occ = trainer.state.params, trainer.occupancy.occ_bitfield
+    params, occ = trainer.state.params, trainer.occupancy.occ_packed
     with torch.no_grad():
         bgc = field_background(params, st, polar_from_ray(ro, rd, st.bg_radius), rd)
         comp = render_rays_march(params, st, occ, ro, rd, num_samples=cfg.march_samples,
@@ -2936,12 +3070,12 @@ def dp_compare(mesh, cfg, workspace):
             torch.cuda.synchronize()
             t0 = time.time()
             with TimedAllReduce() as ar_ms:
-                sc = step(trainer.state, dp.shard_batch(batch, mesh), occ.occ_bitfield,
+                sc = step(trainer.state, dp.shard_batch(batch, mesh), occ.occ_packed,
                           noise=noise)
             torch.cuda.synchronize()
             t_step = time.time() - t0
             k1 = fused_mlp.fused_field_head.launches
-            ref = train_step_events(single, batch, trainer.ss, occ.occ_bitfield, noise=noise)
+            ref = train_step_events(single, batch, trainer.ss, occ.occ_packed, noise=noise)
     finally:
         torch.use_deterministic_algorithms(False)
     dp.assert_replicated(trainer.state, trainer.occupancy, mesh)
@@ -3136,7 +3270,7 @@ def dp_rank_main_path(mesh, workspace, out_dir):
         ro, rd = get_rays_full(pose, v["intrinsics"], v["H"], v["W"])
         with torch.no_grad():
             ref = render_rays_march(
-                trainer.state.ema_params, trainer.static, trainer.occupancy.occ_bitfield, ro, rd,
+                trainer.state.ema_params, trainer.static, trainer.occupancy.occ_packed, ro, rd,
                 num_samples=max(2 * cfg.march_samples, 128), max_steps=trainer.ss.max_steps,
                 bg_color=1.0, min_near=cfg.min_near, density_scale=cfg.density_scale,
                 dt_gamma=cfg.dt_gamma)
@@ -3429,7 +3563,7 @@ def main():
             # a device loop of the JAX package (lax.while_loop in lax.scan),
             # not a Pallas kernel
             "replaces": "enerf_tpu/render/march.py:51",
-            "launches": m1_launches}, **m1["main"], bench=m1["bench"],
+            "launches": m1_launches}, **m1["pair"], one_render=m1["main"], bench=m1["bench"],
             bench_dt_gamma=m1["bench_dt_gamma"], infer_first_window=m1_infer["first"],
             infer_last_window=m1_infer["last"], window=window, spiral1_window=spiral1,
             mocapdesk2_window=mocap),

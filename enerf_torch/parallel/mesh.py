@@ -271,12 +271,12 @@ def shard_rays(render, mesh, rays_o, rays_d):
 def make_sharded_render(static, mesh, *, num_samples=128, max_steps=1024, min_near=0.2,
                         density_scale=1.0, dt_gamma=0.0):
     """Sharded full-image render through the occupancy march: returns
-    render(params, occ_bitfield, rays_o, rays_d) -> dict(image, depth,
+    render(params, occ_packed, rays_o, rays_d) -> dict(image, depth,
     weights_sum), every rank holding the whole image."""
-    def render(params, occ_bitfield, rays_o, rays_d):
+    def render(params, occ_packed, rays_o, rays_d):
         return shard_rays(
             lambda o, d: render_rays_march(
-                params, static, occ_bitfield, o, d, num_samples=num_samples,
+                params, static, occ_packed, o, d, num_samples=num_samples,
                 max_steps=max_steps, bg_color=1.0, min_near=min_near,
                 density_scale=density_scale, dt_gamma=dt_gamma),
             mesh, rays_o, rays_d)

@@ -12,16 +12,20 @@ Samples fill a fixed [N, S] buffer with a validity mask.
 The march runs as kernel M1 (csrc/march_rays.cu) on CUDA tensors: one
 thread per ray walks JAX's while_loop of skips inside its scan of emission
 blocks in registers, with no host sync, so a training step can be
-captured in a CUDA graph.  On CPU tensors it runs the plain version
-`_march`, Python loops over the whole batch that stop once no ray is
-active: each skip iteration costs one host sync (which also counts the
-lookups it makes, `march_rays.lookups`).  The march reads the bitfield
-packed into 32-bit words (occupancy.pack_bitfield), which the occupancy
-update keeps beside the bool bitfield; given the bool bitfield, the march
-packs it per call.
-`march_rays.launches` counts M1's launches, `march_rays.host_syncs` the
-syncs of the plain version's loops and of the inference renderer's
-windows.
+captured in a CUDA graph.  M1's pre-pass (`march_prepass`) folds the
+bitfield into the superblock mask and the DDA exit table the kernel keeps
+in shared memory; `render_rays_infer` makes it once a call for all its
+windows.  On CPU tensors the march runs the plain version `_march`, Python
+loops over the whole batch that stop once no ray is active: each skip
+iteration costs one host sync (which also counts the lookups it makes,
+`march_rays.lookups`, and each ray's, `march_rays.ray_lookups`).  The
+march reads the bitfield packed into 32-bit words
+(occupancy.pack_bitfield), which the occupancy update keeps beside the
+bool bitfield.  `march_rays_pair` marches both renders of a ray pair in
+one call.
+`march_rays.launches` counts M1's launches, `march_prepass.launches` its
+pre-pass's, `march_rays.host_syncs` the syncs of the plain version's
+loops and of the inference renderer's windows.
 """
 
 import ctypes
@@ -32,10 +36,13 @@ import torch
 from enerf_torch.models.field import background, field_forward, field_forward_fused
 from enerf_torch.ops.aabb import aabb_tensor, near_far_from_aabb
 from enerf_torch.ops.composite import transmittance
-from enerf_torch.render.occupancy import GRID_SIZE, SUPER, pack_bitfield
+from enerf_torch.render.occupancy import GRID_SIZE, SUPER
 
 SQRT3 = 1.7320508075688772
 SKIP_ITERS = 64  # empty-space jumps per emitted sample block, at most
+HS3 = (GRID_SIZE // SUPER) ** 3  # superblocks a cascade
+EXIT_ROW = GRID_SIZE + GRID_SIZE // SUPER  # exit-table entries a (level, sign)
+M1_THREADS = 64  # M1's threads a block: 1-2% faster than 32 on the H100 at every shape
 
 
 def _mip_from_val(v, cascades):
@@ -45,16 +52,9 @@ def _mip_from_val(v, cascades):
     return exp.clamp(0, cascades - 1).to(torch.int64)
 
 
-def num_cascades_of(occ):
-    """The cascades of a bitfield: bool [CAS, H^3] or packed [CAS * (H/4)^3, 2]."""
-    if occ.dtype == torch.bool:
-        return occ.shape[0]
-    return occ.shape[0] // (GRID_SIZE // SUPER) ** 3
-
-
-def packed_bits(occ):
-    """The packed bitfield of `occ` (packed now if it is the bool one)."""
-    return pack_bitfield(occ) if occ.dtype == torch.bool else occ
+def num_cascades_of(occ_packed):
+    """The cascades of a packed bitfield [CAS * (H/4)^3, 2]."""
+    return occ_packed.shape[0] // HS3
 
 
 def emit_k(max_steps):
@@ -77,6 +77,8 @@ def _march(rays_o, rays_d, occ_packed, nears, fars, t0, *, num_samples,
     inv_d = 1.0 / rays_d
     sign_d = torch.sign(rays_d)
     live0 = nears < 1e30
+    ray_lookups = torch.zeros(rays_o.shape[0], dtype=torch.int32, device=rays_o.device)
+    march_rays.ray_lookups = ray_lookups
 
     def lookup(t):
         """occupancy + skip distance at parameter t.  All [N]."""
@@ -120,6 +122,7 @@ def _march(rays_o, rays_d, occ_packed, nears, fars, t0, *, num_samples,
             if not active:
                 break
             march_rays.lookups += active
+            ray_lookups.add_(is_live)
             occ, dt, tt = lookup(t)
             emit = is_live & occ
             dtf = torch.where(emit, dt, dtf)
@@ -167,19 +170,98 @@ def _march(rays_o, rays_d, occ_packed, nears, fars, t0, *, num_samples,
 
 def _lib():
     from enerf_torch.ops.cuda_build import load_library
-    fn = load_library("march_rays").march_rays_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float] * 6
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    lib = load_library("march_rays")
+    if lib.march_rays_launch.argtypes is None:
+        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.march_rays_launch.argtypes = [vp] * 11 + [i32] * 6 + [f32] * 5 + [vp]
+        lib.march_prepass_launch.argtypes = [vp, vp, i32, f32, f32, vp]
+        lib.mip_check_launch.argtypes = [vp, vp]
+        for fn in (lib.march_rays_launch, lib.march_prepass_launch, lib.mip_check_launch):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _inv_hm1():
+    """1 / (H - 1) as ATen's scalar divide uses it: the host's float32 reciprocal."""
+    return np.float32(1.0) / np.float32(GRID_SIZE - 1)
+
+
+def _check_packed(occ_packed, cascades, dev):
+    if (occ_packed.dtype != torch.int32 or occ_packed.device != dev
+            or occ_packed.shape != (cascades * HS3, 2) or not occ_packed.is_contiguous()):
+        raise ValueError(f"the march takes the packed bitfield [{cascades} * {HS3}, 2] int32 "
+                         f"on the rays' device, got {tuple(occ_packed.shape)} "
+                         f"{occ_packed.dtype} on {occ_packed.device}")
+
+
+def march_aux_reference(occ_packed, cascades, bound):
+    """Plain version of M1's pre-pass: [CAS * (1024 + 3 * 160)] int32, the
+    superblock mask (bit s of word w: superblock 32 w + s, cascade-major,
+    holds an occupied cell), then the DDA exit table as float32 bits,
+    [level][sign + 1][j]: ((c * block + block / 2 + sgn * block / 2)
+    * (1 / (H - 1)) * 2 - 1) * mip_bound for cell j (block 1) when j < 128,
+    superblock j - 128 (block 4) above, rounded after each operation as the
+    plain march's boundary() rounds on the card."""
+    dev = occ_packed.device
+    any_bit = (occ_packed != 0).any(-1).reshape(-1, 32).to(torch.int64)
+    words = (any_bit << torch.arange(32, device=dev, dtype=torch.int64)).sum(-1)
+    mask = torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+    j = torch.arange(EXIT_ROW, device=dev)
+    cell = j < GRID_SIZE
+    block = torch.where(cell, 1.0, float(SUPER))
+    c = torch.where(cell, j, j - GRID_SIZE).float()
+    sgn = torch.tensor([-1.0, 0.0, 1.0], device=dev)[:, None]
+    part = (c * block + 0.5 * block) + sgn * (0.5 * block)
+    part = part * torch.tensor(_inv_hm1(), device=dev) * 2.0 - 1.0     # [3, EXIT_ROW]
+    mip_bound = torch.exp2(torch.arange(cascades, device=dev).float()).clamp(max=bound)
+    table = part[None] * mip_bound[:, None, None]                      # [CAS, 3, EXIT_ROW]
+    return torch.cat([mask, table.reshape(-1).view(torch.int32)])
+
+
+def march_prepass(occ_packed, cascades, bound):
+    """M1's pre-pass on the card: march_aux_reference's words from the
+    packed bitfield, one thread a superblock.  The march makes it per
+    launch unless its caller hands it in (`aux`), as the inference
+    renderer does once a call."""
+    dev = occ_packed.device
+    if not occ_packed.is_cuda:
+        raise ValueError("the march pre-pass runs on CUDA tensors")
+    _check_packed(occ_packed, cascades, dev)
+    aux = torch.empty(cascades * (HS3 // 32 + 3 * EXIT_ROW), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().march_prepass_launch(
+            occ_packed.data_ptr(), aux.data_ptr(), cascades, float(np.float32(bound)),
+            float(_inv_hm1()), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"march pre-pass launch failed: cudaError {err}")
+    march_prepass.launches += 1
+    return aux
+
+
+march_prepass.launches = 0
+
+
+def mip_check(device="cuda"):
+    """The card's exhaustive check of M1's bit arithmetic: mismatches of the
+    exponent mip level against ceil(log2) + exp2f on every non-negative
+    float32 for 1-4 cascades, of x * 2^-l against x / 2^l on every float32
+    for l = 1-3, and of exp2f(l) against 2^l for l = 0-3 (each 0 when M1 is
+    exact)."""
+    out = torch.zeros(3, dtype=torch.int64, device=device)
+    with torch.cuda.device(out.device):
+        err = _lib().mip_check_launch(out.data_ptr(),
+                                      torch.cuda.current_stream(out.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mip check launch failed: cudaError {err}")
+    return dict(zip(("level", "division", "exp2"), out.tolist()))
 
 
 def launch_kernel(rays_o, rays_d, occ_packed, nears, fars, t0, *, num_samples, max_steps,
-                  cascades, bound, dt_gamma):
+                  cascades, bound, dt_gamma, aux=None):
     """Launch M1 on CUDA tensors -> (ts, dts [N, S] f32, valid [N, S] bool,
     t_end [N] f32), what `_march` returns on the same inputs.  rays [N, 3],
-    nears / fars / t0 [N] f32; occ_packed [CAS * (H/4)^3, 2] int32."""
+    nears / fars / t0 [N] f32; occ_packed [CAS * (H/4)^3, 2] int32; aux:
+    march_prepass(occ_packed, cascades, bound), made here when not given."""
     N = rays_o.shape[0]
     dev = rays_o.device
     f32 = [rays_o, rays_d, nears, fars, t0]
@@ -190,12 +272,12 @@ def launch_kernel(rays_o, rays_d, occ_packed, nears, fars, t0, *, num_samples, m
             x.shape != (N,) for x in (nears, fars, t0)):
         raise ValueError(f"the march kernel takes rays [N, 3] and nears / fars / t0 [N], got "
                          f"{[tuple(x.shape) for x in f32]}")
-    HS = GRID_SIZE // SUPER
-    if (occ_packed.dtype != torch.int32 or occ_packed.device != dev
-            or occ_packed.shape != (cascades * HS ** 3, 2) or not occ_packed.is_contiguous()):
-        raise ValueError(f"the march kernel takes the packed bitfield [{cascades} * {HS}^3, 2] "
-                         f"int32 on the rays' device, got {tuple(occ_packed.shape)} "
-                         f"{occ_packed.dtype} on {occ_packed.device}")
+    _check_packed(occ_packed, cascades, dev)
+    if aux is None:
+        aux = march_prepass(occ_packed, cascades, bound)
+    elif aux.shape != (cascades * (HS3 // 32 + 3 * EXIT_ROW),) or aux.device != dev:
+        raise ValueError(f"the march kernel's aux is march_prepass's output, got "
+                         f"{tuple(aux.shape)} on {aux.device}")
     rays_o, rays_d, nears, fars, t0 = (x.contiguous() for x in f32)
     ts = torch.empty(N, num_samples, device=dev)
     dts = torch.empty(N, num_samples, device=dev)
@@ -204,44 +286,42 @@ def launch_kernel(rays_o, rays_d, occ_packed, nears, fars, t0, *, num_samples, m
     dt_min = np.float32(2.0 * SQRT3 / max_steps)
     dt_max = np.float32(2.0 * SQRT3 * (2 ** (cascades - 1)) / GRID_SIZE)
     k = emit_k(max_steps) if dt_gamma == 0.0 else 1
-    fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(rays_o.data_ptr(), rays_d.data_ptr(), occ_packed.data_ptr(),
-                 nears.data_ptr(), fars.data_ptr(), t0.data_ptr(), ts.data_ptr(),
-                 dts.data_ptr(), valid.data_ptr(), t_end.data_ptr(), N, num_samples, k,
-                 int(dt_gamma == 0.0), cascades, float(dt_min), float(dt_max),
-                 float(np.float32(dt_gamma)), float(np.float32(bound)),
-                 # ATen divides by a Python scalar as a product with its float
-                 # reciprocal, computed on the host in float32
-                 float(np.float32(1.0) / dt_min),
-                 float(np.float32(1.0) / np.float32(GRID_SIZE - 1)), stream)
+        err = _lib().march_rays_launch(
+            rays_o.data_ptr(), rays_d.data_ptr(), occ_packed.data_ptr(), aux.data_ptr(),
+            nears.data_ptr(), fars.data_ptr(), t0.data_ptr(), ts.data_ptr(), dts.data_ptr(),
+            valid.data_ptr(), t_end.data_ptr(), N, num_samples, k, int(dt_gamma == 0.0),
+            cascades, M1_THREADS, float(dt_min), float(dt_max), float(np.float32(dt_gamma)),
+            float(np.float32(bound)),
+            # ATen divides by a Python scalar as a product with its float
+            # reciprocal, computed on the host in float32
+            float(np.float32(1.0) / dt_min), stream)
     if err != 0:
         raise RuntimeError(f"march kernel launch failed: cudaError {err}")
     march_rays.launches += 1
     return ts, dts, valid, t_end
 
 
-def march(rays_o, rays_d, occ, nears, fars, t0, *, num_samples, max_steps, cascades, bound,
-          dt_gamma):
+def march(rays_o, rays_d, occ_packed, nears, fars, t0, *, num_samples, max_steps, cascades,
+          bound, dt_gamma, aux=None):
     """(ts, dts, valid, t_end) of the march from t0: M1 on CUDA tensors, the
-    plain version `_march` on CPU tensors.  occ: the bool or the packed
-    bitfield."""
+    plain version `_march` on CPU tensors (which needs no `aux`)."""
     kw = dict(num_samples=num_samples, max_steps=max_steps, cascades=cascades, bound=bound,
               dt_gamma=dt_gamma)
     if rays_o.is_cuda:
-        return launch_kernel(rays_o, rays_d, packed_bits(occ), nears, fars, t0, **kw)
-    return _march(rays_o, rays_d, packed_bits(occ), nears, fars, t0, **kw)
+        return launch_kernel(rays_o, rays_d, occ_packed, nears, fars, t0, aux=aux, **kw)
+    return _march(rays_o, rays_d, occ_packed, nears, fars, t0, **kw)
 
 
 @torch.no_grad()
-def march_rays(rays_o, rays_d, occ_bitfield, nears, fars, *, jitter=None,
+def march_rays(rays_o, rays_d, occ_packed, nears, fars, *, jitter=None,
                num_samples=64, max_steps=1024, cascades=1, bound=1.0,
                dt_gamma=0.0, perturb=False):
     """March N rays through the occupancy grid: kernel M1 on CUDA tensors,
     the plain version on CPU tensors.
 
-    rays_o, rays_d: [N, 3]; occ_bitfield: [CAS, H^3] bool, or packed
+    rays_o, rays_d: [N, 3]; occ_packed: the packed bitfield
     [CAS * (H/4)^3, 2] int32 (occupancy.pack_bitfield); nears, fars: [N]
     (FLT_MAX for misses).  With perturb, each ray's start moves by
     dt_min * jitter, jitter [N] in [0, 1) (the caller's random draw).
@@ -252,7 +332,7 @@ def march_rays(rays_o, rays_d, occ_bitfield, nears, fars, *, jitter=None,
     if perturb:
         t0 = nears + (2.0 * SQRT3 / max_steps) * jitter
     ts, dts, valid, _ = march(
-        rays_o, rays_d, occ_bitfield, nears, fars, t0, num_samples=num_samples,
+        rays_o, rays_d, occ_packed, nears, fars, t0, num_samples=num_samples,
         max_steps=max_steps, cascades=cascades, bound=bound, dt_gamma=dt_gamma)
     return ts, dts, valid
 
@@ -260,6 +340,20 @@ def march_rays(rays_o, rays_d, occ_bitfield, nears, fars, *, jitter=None,
 march_rays.launches = 0    # M1 launches (CUDA path only)
 march_rays.host_syncs = 0  # host syncs: the plain version's skips, the infer windows
 march_rays.lookups = 0     # the plain version's (ray, lookup) pairs: M1's operation count
+march_rays.ray_lookups = None  # [N] int32: each ray's lookups in the plain version's last call
+
+
+@torch.no_grad()
+def march_rays_pair(rays_o, rays_d, occ_packed, nears, fars, *, jitter, **kw):
+    """march_rays of both renders of a ray pair in one march (one M1
+    launch): each of rays_o, rays_d, nears, fars and jitter is a pair (the
+    first render's, the second's).  Returns ((ts, dts, valid), (ts, dts,
+    valid)), each ray's what a march of its render alone gives."""
+    n = rays_o[0].shape[0]
+    ts, dts, valid = march_rays(*(torch.cat(x) for x in (rays_o, rays_d)), occ_packed,
+                                *(torch.cat(x) for x in (nears, fars)),
+                                jitter=torch.cat(jitter), **kw)
+    return tuple((ts[s], dts[s], valid[s]) for s in (slice(None, n), slice(n, None)))
 
 
 def _field_fn(static):
@@ -311,7 +405,7 @@ def composite_from_march(params, static, rays_o, rays_d, ts, dts, valid, nears,
     return out
 
 
-def render_rays_march(params, static, occ_bitfield, rays_o, rays_d, *,
+def render_rays_march(params, static, occ_packed, rays_o, rays_d, *,
                       num_samples=64, max_steps=1024, bg_color=1.0,
                       perturb=False, jitter=None, min_near=0.2,
                       density_scale=1.0, dt_gamma=0.0, compact_frac=None,
@@ -321,9 +415,9 @@ def render_rays_march(params, static, occ_bitfield, rays_o, rays_d, *,
     nears, fars = near_far_from_aabb(rays_o, rays_d,
                                      aabb_tensor(static.bound, rays_o.device), min_near)
     ts, dts, valid = march_rays(
-        rays_o, rays_d, occ_bitfield, nears, fars, jitter=jitter,
+        rays_o, rays_d, occ_packed, nears, fars, jitter=jitter,
         num_samples=num_samples, max_steps=max_steps,
-        cascades=num_cascades_of(occ_bitfield), bound=static.bound, dt_gamma=dt_gamma,
+        cascades=num_cascades_of(occ_packed), bound=static.bound, dt_gamma=dt_gamma,
         perturb=perturb)
     return composite_from_march(
         params, static, rays_o, rays_d, ts, dts, valid, nears, fars,
@@ -332,9 +426,9 @@ def render_rays_march(params, static, occ_bitfield, rays_o, rays_d, *,
 
 
 @torch.no_grad()
-def render_rays_infer(params, static, occ_bitfield, rays_o, rays_d, *,
+def render_rays_infer(params, static, occ_packed, rays_o, rays_d, *,
                       block=16, max_steps=1024, bg_color=1.0, min_near=0.2,
-                      density_scale=1.0, dt_gamma=0.0, occ_packed=None):
+                      density_scale=1.0, dt_gamma=0.0):
     """Alive-ray inference renderer (reference raymarching.cu:701-938,
     renderer.py:344-401): march the alive rays one [N, block] window at a
     time (one march launch a window: M1 on CUDA tensors), composite
@@ -344,16 +438,15 @@ def render_rays_infer(params, static, occ_bitfield, rays_o, rays_d, *,
     is alive is this renderer's one host sync a window (counted in
     march_rays.host_syncs), at most max_iters = ceil(max_steps / block)
     windows (64 at the defaults) a call; JAX's while_loop makes that check
-    on the device.  occ_bitfield: bool or packed; occ_packed: its packed
-    words, when the caller keeps them.
+    on the device.  occ_packed: the packed bitfield; on the card M1's
+    pre-pass runs once a call, for all its windows.
     Returns dict(image=[N, C], depth=[N], weights_sum=[N])."""
     N = rays_o.shape[0]
     dev = rays_o.device
-    cascades = num_cascades_of(occ_bitfield)
+    cascades = num_cascades_of(occ_packed)
     nears, fars = near_far_from_aabb(rays_o, rays_d,
                                      aabb_tensor(static.bound, dev), min_near)
-    if occ_packed is None:
-        occ_packed = packed_bits(occ_bitfield)
+    aux = march_prepass(occ_packed, cascades, static.bound) if rays_o.is_cuda else None
     k = 1 if dt_gamma != 0.0 else emit_k(max_steps)
     B = max(1, -(-block // k)) * k  # whole emission blocks: no gaps
     max_iters = -(-max_steps // B)
@@ -373,7 +466,7 @@ def render_rays_infer(params, static, occ_bitfield, rays_o, rays_d, *,
         ts, dts, valid, t_end = march(
             rays_o, rays_d, occ_packed, t_start, fars, t_start, num_samples=B,
             max_steps=max_steps, cascades=cascades, bound=static.bound,
-            dt_gamma=dt_gamma)
+            dt_gamma=dt_gamma, aux=aux)
         xyzs = (rays_o[:, None, :] + rays_d[:, None, :] * ts[..., None]).clamp(
             -static.bound, static.bound)
         dirs = rays_d[:, None, :].expand_as(xyzs)

@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from enerf_torch.models.field import EncodeReplay
 from enerf_torch.ops.aabb import aabb_tensor, near_far_from_aabb
 from enerf_torch.render.march import (
-    composite_from_march, march_rays, num_cascades_of, render_rays_march,
+    composite_from_march, march_rays, march_rays_pair, num_cascades_of, render_rays_march,
 )
 from enerf_torch.render.renderer import render_rays
 from enerf_torch.train import losses
@@ -107,13 +107,34 @@ def _render_pair_shared(params, ss, o1, d1, o2, d2, bg, jitter, occ):
         for o, d in ((o1, d1), (o2, d2)))
 
 
-def _render(params, ss, rays_o, rays_d, bg, jitter, occ_bitfield, u=None):
-    """One training render: the march when ss.use_march and a bitfield is
-    given, else the fixed-step renderer (jitter [N, num_steps], u
-    [N, upsample_steps])."""
-    if ss.use_march and occ_bitfield is not None:
+def _render_pair_march(params, ss, o1, d1, o2, d2, bg, jitters, occ):
+    """Both renders of a ray pair on the march, each with its own jitter:
+    one march of both renders' rays (one M1 launch on the card; each ray
+    gets what its render's march alone gives it), then each render's
+    composite (render_rays_march's, split in two)."""
+    fs = ss.field_static
+    aabb = aabb_tensor(fs.bound, o1.device)
+    rays = ((o1, d1), (o2, d2))
+    near_far = [near_far_from_aabb(o, d, aabb, ss.min_near) for o, d in rays]
+    marched = march_rays_pair(
+        (o1, o2), (d1, d2), occ, *zip(*near_far), jitter=jitters,
+        num_samples=ss.march_samples, max_steps=ss.max_steps, cascades=num_cascades_of(occ),
+        bound=fs.bound, dt_gamma=ss.dt_gamma, perturb=True)
+    return tuple(
+        composite_from_march(
+            params, fs, o, d, ts, dts, valid, nears, fars, bg_color=bg,
+            density_scale=ss.density_scale, compact_frac=ss.compact_frac,
+            return_weights=ss.w_distortion > 0.0)
+        for (o, d), (nears, fars), (ts, dts, valid) in zip(rays, near_far, marched))
+
+
+def _render(params, ss, rays_o, rays_d, bg, jitter, occ, u=None):
+    """One training render: the march when ss.use_march and a packed
+    bitfield is given, else the fixed-step renderer (jitter [N, num_steps],
+    u [N, upsample_steps])."""
+    if ss.use_march and occ is not None:
         return render_rays_march(
-            params, ss.field_static, occ_bitfield, rays_o, rays_d,
+            params, ss.field_static, occ, rays_o, rays_d,
             num_samples=ss.march_samples, max_steps=ss.max_steps, bg_color=bg,
             perturb=True, jitter=jitter, min_near=ss.min_near,
             density_scale=ss.density_scale, dt_gamma=ss.dt_gamma,
@@ -173,12 +194,16 @@ def uses_no_ev(ss, batch):
 
 
 def _render_pair(params, ss, batch, prefix, bg, noise, suffix, occ):
-    """Both renders of a ray pair: one shared march (share_march) or one
-    render each, with its own noise."""
+    """Both renders of a ray pair: one shared march (share_march), one
+    march of both renders' rays, or (fixed-step) one render each, with its
+    own noise."""
     o1, d1, o2, d2 = (batch[f"rays_{prefix}_{k}"] for k in ("o1", "d1", "o2", "d2"))
-    if ss.use_march and ss.share_march and occ is not None:
-        return _render_pair_shared(params, ss, o1, d1, o2, d2, bg, noise[f"jitter{suffix}1"],
-                                   occ)
+    if ss.use_march and occ is not None:
+        if ss.share_march:
+            return _render_pair_shared(params, ss, o1, d1, o2, d2, bg,
+                                       noise[f"jitter{suffix}1"], occ)
+        return _render_pair_march(params, ss, o1, d1, o2, d2, bg,
+                                  (noise[f"jitter{suffix}1"], noise[f"jitter{suffix}2"]), occ)
     return tuple(_render(params, ss, o, d, bg, noise[f"jitter{suffix}{i}"], occ,
                          noise.get(f"u{suffix}{i}"))
                  for i, (o, d) in ((1, (o1, d1)), (2, (o2, d2))))
@@ -203,7 +228,7 @@ def frames_loss_fn(params, ss, batch, noise, occ=None):
 
 def event_loss_fn(params, ss, batch, noise, occ, group=None):
     """Event photometric loss on paired renders (utils.py:482-573);
-    occ: the [CAS, H^3] occupancy bitfield the march renders go through
+    occ: the packed occupancy bitfield the march renders go through
     (None on the fixed-step path).  With a process `group` the batch is this
     rank's shard: the normalized event loss takes its norms over the global
     batch (losses.event_loss), and the implC_* medians, which would need

@@ -526,7 +526,6 @@ class Trainer:
         if out is not None:
             return (out["image"].reshape(H, W, C).cpu().numpy(),
                     out["depth"].reshape(H, W).cpu().numpy())
-        packed = self.occupancy.occ_packed
         chunk = min(int(self.cfg.max_ray_batch), ro.shape[0])
         images, depths = [], []
         for s in range(0, ro.shape[0], chunk):
@@ -536,10 +535,10 @@ class Trainer:
                 co = torch.cat([co, co[-1:].expand(pad, 3)])
                 cd = torch.cat([cd, cd[-1:].expand(pad, 3)])
             o = render_rays_infer(
-                params, self.static, self.occupancy.occ_bitfield, co, cd,
+                params, self.static, self.occupancy.occ_packed, co, cd,
                 block=16, max_steps=self.ss.max_steps, bg_color=1.0,
                 min_near=self.cfg.min_near, density_scale=self.cfg.density_scale,
-                dt_gamma=self.cfg.dt_gamma, occ_packed=packed)
+                dt_gamma=self.cfg.dt_gamma)
             n = chunk - pad
             images.append(o["image"][:n])
             depths.append(o["depth"][:n])

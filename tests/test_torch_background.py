@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import torch
 
 from torch_parity import n, params_np, t, unit_dirs
+from torch_march_parity import per_render, unpack_bitfield
 
 from enerf_tpu.models import field as jfield
 from enerf_tpu.ops import fused_mlp as jfmlp
@@ -33,6 +34,7 @@ from enerf_torch.models import field as tfield
 from enerf_torch.ops import fused_mlp
 from enerf_torch.ops.aabb import aabb_tensor, near_far_from_aabb, polar_from_ray
 from enerf_torch.render import march as tmarch, renderer as trend
+from enerf_torch.render.occupancy import pack_bitfield
 from enerf_torch.train import checkpoints as tckpt, state as tstate, step as tstep
 from enerf_torch.train.trainer import Trainer
 
@@ -133,8 +135,8 @@ def test_composite_and_infer_with_bg_match_jax():
     assert torch.equal(out_t["image"][-16:], bgc[-16:])  # a missing ray shows the bg net
     out_j = jmarch.render_rays_infer(pj, sj, jnp.asarray(bitfield), jnp.asarray(o),
                                      jnp.asarray(d), block=16, max_steps=1024, bg_color=0.3)
-    out_t = tmarch.render_rays_infer(pt, st, t(bitfield), t(o), t(d), block=16, max_steps=1024,
-                                     bg_color=0.3)
+    out_t = tmarch.render_rays_infer(pt, st, pack_bitfield(t(bitfield)), t(o), t(d), block=16,
+                                     max_steps=1024, bg_color=0.3)
     assert torch.equal(out_t["image"][-16:], bgc[-16:])
     for k in ("image", "depth", "weights_sum"):  # test_torch_render.py's tolerance
         np.testing.assert_allclose(n(out_t[k]), np.asarray(out_j[k]), rtol=0, atol=1e-4,
@@ -229,19 +231,20 @@ def test_step_gradients_match_jax(mode, renderer, encoding, bg_radius, monkeypat
         def jax_march(rays_o, rays_d, occ_bitfield, nears, fars, *, jitter, generator=None,
                       **kw):
             out = jmarch.march_rays(*(jnp.asarray(n(a)) for a in
-                                      (rays_o, rays_d, occ_bitfield, nears, fars)),
+                                      (rays_o, rays_d, unpack_bitfield(occ_bitfield), nears, fars)),
                                     keys[id(jitter)], **kw)
             return tuple(t(a) for a in out)
 
         monkeypatch.setattr(tmarch, "march_rays", jax_march)
         monkeypatch.setattr(tstep, "march_rays", jax_march)
+        monkeypatch.setattr(tstep, "march_rays_pair", per_render(jax_march))
     state_j, opt = jstate.init_train_state(pj, 0.005, 1000)
     bj = {k: jnp.asarray(v) for k, v in batch.items()}
     (loss_j, _), g_j = jax.value_and_grad(loss_fn, has_aux=True)(
         state_j.params, ss_j, bj, key, None if occ is None else jnp.asarray(occ))
     state_t = tstate.TrainState(params_from_jax(params_np(pj)), 0.005, 1000)
     aux_t = step_fn(state_t, {k: t(v) for k, v in batch.items()}, ss_t,
-                    None if occ is None else t(occ), noise=noise)
+                    None if occ is None else pack_bitfield(t(occ)), noise=noise)
     np.testing.assert_allclose(float(aux_t["loss"]), float(loss_j), rtol=1e-4)
     assert set(g_j) == set(state_t.params)
     assert ("bg_table" in g_j) == (bg_radius > 0) and ("hash_table" in g_j) == (

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import torch
 
 from torch_parity import n, params_np, t
+from torch_march_parity import per_render
 
 from enerf_tpu.data import provider as jprov, synthetic as jsyn
 from enerf_tpu.models import field as jfield
@@ -115,6 +116,7 @@ def _jax_march(monkeypatch, march_keys, bitfield):
 
     monkeypatch.setattr(tmarch, "march_rays", jax_march)
     monkeypatch.setattr(tstep, "march_rays", jax_march)
+    monkeypatch.setattr(tstep, "march_rays_pair", per_render(jax_march))
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import torch
 
 from torch_parity import n, params_np, t
+from torch_march_parity import unpack_bitfield
 
 from enerf_tpu.data import provider as jprov, synthetic as jsyn
 from enerf_tpu.models import field as jfield
@@ -30,6 +31,7 @@ from enerf_torch.data import provider as tprov
 from enerf_torch.models import field as tfield
 from enerf_torch.ops import hashgrid as th
 from enerf_torch.render import march as tmarch
+from enerf_torch.render.occupancy import pack_bitfield
 from enerf_torch.train import clip_guidance as tclip, state as tstate, step as tstep
 from enerf_torch.train.trainer import Trainer
 
@@ -186,7 +188,8 @@ def test_train_step_clip_matches_jax(renderer, monkeypatch):
                       **kw):
             assert jitter is noise["jitter_clip"]
             out = jmarch.march_rays(*(jnp.asarray(n(a)) for a in
-                                      (rays_o, rays_d, occ_bitfield, nears, fars)), key, **kw)
+                                      (rays_o, rays_d, unpack_bitfield(occ_bitfield), nears,
+                                       fars)), key, **kw)
             return tuple(t(a) for a in out)
 
         monkeypatch.setattr(tmarch, "march_rays", jax_march)
@@ -198,7 +201,8 @@ def test_train_step_clip_matches_jax(renderer, monkeypatch):
         state_j.params, ss_j, bj, key, tf, side, None if occ is None else jnp.asarray(occ))
     new_j = jstate.apply_updates(state_j, g_j, opt)
     state_t = tstate.TrainState(params_from_jax(params_np(pj)), 0.005, 1000)
-    aux_t = tstep.train_step_clip(state_t, dict(batch), ss_t, None if occ is None else t(occ),
+    aux_t = tstep.train_step_clip(state_t, dict(batch), ss_t,
+                                  None if occ is None else pack_bitfield(t(occ)),
                                   tf_t, side, noise=noise)
     assert set(aux_t) == {"loss", "loss_clip"} and state_t.step == 1
     np.testing.assert_allclose(float(aux_t["loss_clip"]), float(aux_j["loss_clip"]), rtol=1e-4)

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import torch
 
 from torch_parity import n, params_np, t, unit_dirs
+from torch_march_parity import unpack_bitfield
 
 from enerf_tpu.data import provider as jprov, rays as jrays, synthetic as jsyn
 from enerf_tpu.models import field as jfield
@@ -27,6 +28,7 @@ from enerf_torch.data import provider as tprov, rays as trays
 from enerf_torch.models import field as tfield
 from enerf_torch.ops import fused_mlp, hashgrid as th
 from enerf_torch.render import march as tmarch
+from enerf_torch.render.occupancy import pack_bitfield
 from enerf_torch.train import state as tstate, step as tstep
 from enerf_torch.train.trainer import Trainer
 
@@ -186,7 +188,8 @@ def test_train_step_frames_matches_jax(renderer, monkeypatch):
                       **kw):
             assert jitter is noise["jitter_frames"]
             out = jmarch.march_rays(*(jnp.asarray(n(a)) for a in
-                                      (rays_o, rays_d, occ_bitfield, nears, fars)), k_r, **kw)
+                                      (rays_o, rays_d, unpack_bitfield(occ_bitfield), nears,
+                                       fars)), k_r, **kw)
             return tuple(t(a) for a in out)
 
         monkeypatch.setattr(tmarch, "march_rays", jax_march)
@@ -206,7 +209,7 @@ def test_train_step_frames_matches_jax(renderer, monkeypatch):
     state_t = tstate.TrainState(params_from_jax(params_np(pj)), 0.005, 1000)
     fused_mlp.fused_field_head.launches = 0
     aux_t = tstep.train_step_frames(state_t, {k: t(v) for k, v in batch.items()}, ss_t,
-                                    None if occ is None else t(occ), noise=noise)
+                                    None if occ is None else pack_bitfield(t(occ)), noise=noise)
     assert fused_mlp.fused_field_head.launches == 0  # CPU tensors: the plain head
     assert state_t.step == 1 and set(aux_t) == {"loss", "loss_frames", "per_ray_loss"}
     assert float(aux_t["loss"]) > 0.01

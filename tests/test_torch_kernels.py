@@ -209,19 +209,16 @@ def test_group_gather_kernel_matches_twin_on_card(rows, d, groups, windows):
     assert torch.equal(got, group_gather.group_gather_reference(gidx, table))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dt_gamma,max_steps,bound", [(0.0, 1024, 1.0), (1.0 / 256, 1024, 1.0),
-                                                      (0.0, 256, 2.0)])
-def test_march_kernel_matches_twin_on_card(dt_gamma, max_steps, bound):
-    """M1 against `_march` on rays from a shell (a few parallel to an axis,
-    so 0 * inf meets a cell face), some missing the box: bit-equal."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (M1 has no CPU mode)")
+def _march_case(N, bound, max_steps, grid="ball", seed=3):
+    """M1's inputs on the card: rays from a shell (a few parallel to an
+    axis, so 0 * inf meets a cell face), some missing the box; the packed
+    bitfield of a ball (and 2% of the cells of each outer cascade), of a
+    full grid or of an empty one."""
     from enerf_torch.ops.aabb import aabb_tensor, near_far_from_aabb
     from enerf_torch.render import march as M
     from enerf_torch.render.occupancy import ball_bitfield, num_cascades, pack_bitfield
-    g = torch.Generator(device="cuda").manual_seed(3)
-    N, cas = 3001, num_cascades(bound)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cas = num_cascades(bound)
     o = torch.randn(N, 3, device="cuda", generator=g)
     o = 2.5 * bound * o / o.norm(dim=-1, keepdim=True)
     d = torch.rand(N, 3, device="cuda", generator=g) - 0.5 - o / (2.5 * bound)
@@ -229,13 +226,84 @@ def test_march_kernel_matches_twin_on_card(dt_gamma, max_steps, bound):
     d = d / d.norm(dim=-1, keepdim=True)
     nears, fars = near_far_from_aabb(o, d, aabb_tensor(bound, "cuda"), 0.2)
     t0 = nears + (2.0 * M.SQRT3 / max_steps) * torch.rand(N, device="cuda", generator=g)
-    bits = pack_bitfield(ball_bitfield(radius=0.6, cascades=cas, device="cuda"))
+    bf = ball_bitfield(radius=0.6, cascades=cas, device="cuda")
+    bf[1:] = torch.rand(bf[1:].shape, device="cuda", generator=g) < 0.02
+    if grid != "ball":
+        bf[:] = grid == "full"
+    return (o, d, pack_bitfield(bf), nears, fars, t0), cas
+
+
+def _bit_equal(got, ref):
+    for a, b in zip(got, ref):
+        assert torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt_gamma,max_steps,bound,grid", [
+    (0.0, 1024, 1.0, "ball"), (1.0 / 256, 1024, 1.0, "ball"), (0.0, 256, 2.0, "ball"),
+    # bound 3 (30 published configs): 3 cascades, the top level's mip_bound clamped to 3
+    (0.0, 1024, 3.0, "ball"), (1.0 / 256, 1024, 3.0, "ball"),
+    (0.0, 1024, 1.0, "full"), (0.0, 1024, 1.0, "empty"), (0.0, 1024, 3.0, "full")])
+def test_march_kernel_matches_twin_on_card(dt_gamma, max_steps, bound, grid):
+    """M1 against `_march` on rays from a shell, some missing the box:
+    ts, dts, valid and t_end bit-equal on every ray."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (M1 has no CPU mode)")
+    from enerf_torch.render import march as M
+    (o, d, bits, nears, fars, t0), cas = _march_case(3001, bound, max_steps, grid)
     kw = dict(num_samples=37, max_steps=max_steps, cascades=cas, bound=bound, dt_gamma=dt_gamma)
     before = M.march_rays.launches
     got = M.launch_kernel(o, d, bits, nears, fars, t0, **kw)
     torch.cuda.synchronize()
     assert M.march_rays.launches == before + 1
     ref = M._march(o, d, bits, nears, fars, t0, **kw)
-    assert int(ref[2].sum()) > 1000
-    for a, b in zip(got, ref):
-        assert torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+    assert int(ref[2].sum()) == 0 if grid == "empty" else int(ref[2].sum()) > 1000
+    _bit_equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt_gamma,bound", [(0.0, 1.0), (1.0 / 256, 3.0)])
+def test_march_pair_in_one_launch_matches_two_launches(dt_gamma, bound):
+    """The pair's rays marched in one launch (the training step's
+    march_rays_pair) against a launch for each render: bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (M1 has no CPU mode)")
+    from enerf_torch.render import march as M
+    (o1, d1, bits, n1, f1, _), cas = _march_case(2049, bound, 1024, seed=4)
+    (o2, d2, _, n2, f2, _), _ = _march_case(2049, bound, 1024, seed=5)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    j1, j2 = (torch.rand(2049, device="cuda", generator=g) for _ in range(2))
+    kw = dict(num_samples=64, max_steps=1024, cascades=cas, bound=bound, dt_gamma=dt_gamma,
+              perturb=True)
+    before = M.march_rays.launches
+    got = M.march_rays_pair((o1, o2), (d1, d2), bits, (n1, n2), (f1, f2), jitter=(j1, j2), **kw)
+    assert M.march_rays.launches == before + 1
+    for out, (o, d, n, f, j) in zip(got, ((o1, d1, n1, f1, j1), (o2, d2, n2, f2, j2))):
+        _bit_equal(out, M.march_rays(o, d, bits, n, f, jitter=j, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cascades,bound", [(1, 1.0), (3, 3.0)])
+def test_march_prepass_matches_twin_on_card(cascades, bound):
+    """M1's pre-pass (superblock mask, DDA exit table) against its plain
+    version: bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (M1's pre-pass has no CPU mode)")
+    from enerf_torch.render import march as M
+    (_, _, bits, _, _, _), cas = _march_case(64, bound, 1024)
+    assert cas == cascades
+    got = M.march_prepass(bits, cascades, bound)
+    torch.cuda.synchronize()
+    assert torch.equal(got, M.march_aux_reference(bits, cascades, bound))
+
+
+@pytest.mark.gpu
+def test_march_bit_arithmetic_exhaustive_on_card():
+    """M1's mip level from the float's exponent equals ceil(log2f) +
+    exp2f's correction on every non-negative float32 (NaN, inf and
+    subnormals included) for 1-4 cascades; its product with 2^-l equals
+    the division by 2^l on every float32 for l = 1-3; exp2f(l) = 2^l."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from enerf_torch.render import march as M
+    assert M.mip_check() == {"level": 0, "division": 0, "exp2": 0}

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import torch
 
 from torch_parity import n, params_np, t, unit_dirs
+from torch_march_parity import per_render, unpack_bitfield
 
 from enerf_tpu.data import poses as jposes, provider as jprov, synthetic as jsyn
 from enerf_tpu.models import field as jfield
@@ -20,6 +21,7 @@ from enerf_torch.convert import params_from_jax
 from enerf_torch.data import poses as tposes, provider as tprov
 from enerf_torch.models import field as tfield
 from enerf_torch.render import march as tmarch
+from enerf_torch.render.occupancy import pack_bitfield
 from enerf_torch.train import losses as tlosses, state as tstate, step as tstep
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -152,19 +154,20 @@ def test_train_step_with_no_event_pair_matches_jax(share, monkeypatch):
     # FMA-contracted sample position can flip a block-grid floor())
     def jax_march(rays_o, rays_d, occ_bitfield, nears, fars, *, jitter, **kw_):
         out = jmarch.march_rays(*(jnp.asarray(n(a)) for a in
-                                  (rays_o, rays_d, occ_bitfield, nears, fars)),
+                                  (rays_o, rays_d, unpack_bitfield(occ_bitfield), nears, fars)),
                                 march_keys[id(jitter)], **kw_)
         return tuple(t(a) for a in out)
 
     monkeypatch.setattr(tmarch, "march_rays", jax_march)
     monkeypatch.setattr(tstep, "march_rays", jax_march)
+    monkeypatch.setattr(tstep, "march_rays_pair", per_render(jax_march))
     state_j, opt = jstate.init_train_state(pj, 0.005, 1000)
     bj = {k: jnp.asarray(v) for k, v in batch.items()}
     (loss_j, aux_j), g_j = jax.value_and_grad(jstep.event_loss_fn, has_aux=True)(
         state_j.params, ss_j, bj, key, jnp.asarray(occ))
     state_t = tstate.TrainState(params_from_jax(params_np(pj)), 0.005, 1000)
     aux_t = tstep.train_step_events(state_t, {k: t(v) for k, v in batch.items()},
-                                    ss_t, t(occ), noise=noise)
+                                    ss_t, pack_bitfield(t(occ)), noise=noise)
     assert float(aux_t["loss_no_evs"]) > 0  # the hinge is active
     # tolerances of tests/test_torch_train.py: losses 1e-4 relative,
     # gradients 1e-3 of each tensor's largest entry

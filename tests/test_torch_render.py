@@ -49,9 +49,9 @@ def march_both(o, d, bitfield, dt_gamma, num_samples=64):
                               cascades=1, bound=1.0, dt_gamma=dt_gamma, perturb=True)
     jitter = np.asarray(jax.random.uniform(rng, (o.shape[0],)))  # JAX's own draw
     nt, ft = near_far_from_aabb(t(o), t(d), aabb_tensor(1.0, "cpu"), 0.2)
-    out_t = tmarch.march_rays(t(o), t(d), t(bitfield), nt, ft, jitter=t(jitter),
-                              num_samples=num_samples, max_steps=1024, cascades=1,
-                              bound=1.0, dt_gamma=dt_gamma, perturb=True)
+    out_t = tmarch.march_rays(t(o), t(d), tocc.pack_bitfield(t(bitfield)), nt, ft,
+                              jitter=t(jitter), num_samples=num_samples, max_steps=1024,
+                              cascades=1, bound=1.0, dt_gamma=dt_gamma, perturb=True)
     return out_j, out_t, (nj, fj), (nt, ft)
 
 
@@ -102,7 +102,7 @@ def test_render_rays_infer_matches_jax():
     bitfield = np.asarray(jocc.ball_bitfield(radius=0.6))
     out_j = jmarch.render_rays_infer(pj, sj, jnp.asarray(bitfield), jnp.asarray(o),
                                      jnp.asarray(d), block=16, max_steps=1024)
-    out_t = tmarch.render_rays_infer(pt, st, t(bitfield), t(o), t(d), block=16,
+    out_t = tmarch.render_rays_infer(pt, st, tocc.pack_bitfield(t(bitfield)), t(o), t(d), block=16,
                                      max_steps=1024)
     assert n(out_t["weights_sum"]).max() > 0.05
     # The same samples composited over up to 64 windows.  Inside JAX's

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import torch
 
 from torch_parity import n, params_np, t, unit_dirs
+from torch_march_parity import unpack_bitfield
 
 from enerf_tpu.models import field as jfield
 from enerf_tpu.ops import blockgrid as jbg, scatter_accum as jsa
@@ -18,6 +19,7 @@ from enerf_torch.convert import params_from_jax
 from enerf_torch.models import field as tfield
 from enerf_torch.ops import blockgrid as tbg, scatter_accum as tsa
 from enerf_torch.render import march as tmarch
+from enerf_torch.render.occupancy import pack_bitfield
 from enerf_torch.train import losses as tlosses
 
 # Both table gradients are sums of the same f32 addends g * W (the weights
@@ -198,14 +200,14 @@ def test_bench_march_step_matches_jax(monkeypatch):
 
     def jax_march(rays_o, rays_d, occ_bitfield, nears, fars, *, jitter, **kw_):
         out = jmarch.march_rays(*(jnp.asarray(n(a)) for a in
-                                  (rays_o, rays_d, occ_bitfield, nears, fars)),
+                                  (rays_o, rays_d, unpack_bitfield(occ_bitfield), nears, fars)),
                                 keys[id(jitter)], **kw_)
         return tuple(t(a) for a in out)
 
     monkeypatch.setattr(tmarch, "march_rays", jax_march)
     pt = {k: v.requires_grad_(True) for k, v in params_from_jax(params_np(pj)).items()}
-    outs = [tmarch.render_rays_march(pt, st, t(bitfield), t(oo), t(d), num_samples=32,
-                                     max_steps=1024, bg_color=t(bg), perturb=True, jitter=j,
+    outs = [tmarch.render_rays_march(pt, st, pack_bitfield(t(bitfield)), t(oo), t(d),
+                                     num_samples=32, max_steps=1024, bg_color=t(bg), perturb=True, jitter=j,
                                      compact_frac=0.25)
             for oo, j in ((o, j1), (o + 0.01, j2))]
     ll = [tlosses.log_intensity(out["image"], False) for out in outs]

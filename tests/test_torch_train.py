@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import torch
 
 from torch_parity import n, params_np, t, unit_dirs
+from torch_march_parity import per_render, unpack_bitfield
 
 from enerf_tpu.data import events as jevents, rays as jrays, synthetic as jsyn
 from enerf_tpu.models import field as jfield
@@ -19,6 +20,7 @@ from enerf_torch.convert import params_from_jax
 from enerf_torch.data import events as tevents, rays as trays, synthetic as tsyn
 from enerf_torch.models import field as tfield
 from enerf_torch.render import march as tmarch
+from enerf_torch.render.occupancy import pack_bitfield
 from enerf_torch.train import losses, state as tstate, step as tstep
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -190,12 +192,13 @@ def test_train_step_events_matches_jax(share, monkeypatch):
     def jax_march(rays_o, rays_d, occ_bitfield, nears, fars, *, jitter,
                   generator=None, **kw):
         out = jmarch.march_rays(*(jnp.asarray(n(a)) for a in
-                                  (rays_o, rays_d, occ_bitfield, nears, fars)),
+                                  (rays_o, rays_d, unpack_bitfield(occ_bitfield), nears, fars)),
                                 march_keys[id(jitter)], **kw)
         return tuple(t(a) for a in out)
 
     monkeypatch.setattr(tmarch, "march_rays", jax_march)
     monkeypatch.setattr(tstep, "march_rays", jax_march)
+    monkeypatch.setattr(tstep, "march_rays_pair", per_render(jax_march))
     # JAX: train_step_events' body, unjitted, to read the gradients too
     state_j, opt = jstate.init_train_state(pj, 0.005, 1000)
     bj = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -205,7 +208,7 @@ def test_train_step_events_matches_jax(share, monkeypatch):
 
     state_t = tstate.TrainState(params_from_jax(params_np(pj)), 0.005, 1000)
     aux_t = tstep.train_step_events(state_t, {k: t(v) for k, v in batch.items()},
-                                    ss_t, t(occ), noise=noise)
+                                    ss_t, pack_bitfield(t(occ)), noise=noise)
     assert state_t.step == 1
     # losses through f32 renders, log-intensity x255 amplifies their
     # rounding: 1e-4 relative

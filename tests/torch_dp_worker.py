@@ -100,20 +100,23 @@ def run_step_case(mesh, data, case, out, monkeypatch):
     from enerf_torch.data.provider import FramesProvider
     from enerf_torch.parallel import mesh as dp
     from enerf_torch.render import march as tmarch
+    from enerf_torch.render.occupancy import pack_bitfield
     from enerf_torch.train import losses, state as tstate, step as tstep
+    from torch_march_parity import per_render
 
     c = CASES[case]
     ss = step_statics(case)
     params = _case(data, case, "param")
     batch, noise = _case(data, case, "batch"), _case(data, case, "noise")
     occ = data.get(f"{case}/occ")
-    occ = None if occ is None else torch.from_numpy(occ)
+    occ = None if occ is None else pack_bitfield(torch.from_numpy(occ))
     if c["field"] == "blockgrid":
         samples = [tuple(torch.from_numpy(data[f"{case}/march{i}/{k}"])
                          for k in ("ts", "dts", "valid")) for i in (1, 2)]
         march = JaxMarch(samples)
         monkeypatch(tmarch, "march_rays", march)
         monkeypatch(tstep, "march_rays", march)
+        monkeypatch(tstep, "march_rays_pair", per_render(march))
         n = N_EVENTS // mesh.world_size
         march.rows = slice(mesh.rank * n, (mesh.rank + 1) * n)
 
@@ -167,9 +170,11 @@ def run_render(mesh, data, out):
     from enerf_torch.models.field import FieldStatic
     from enerf_torch.parallel import mesh as dp
     from enerf_torch.render.march import render_rays_march
+    from enerf_torch.render.occupancy import pack_bitfield
 
     st = FieldStatic(**RENDER_FIELD)
-    params, occ = _case(data, "render", "param"), torch.from_numpy(data["render/occ"])
+    params = _case(data, "render", "param")
+    occ = pack_bitfield(torch.from_numpy(data["render/occ"]))
     o, d = torch.from_numpy(data["render/rays_o"]), torch.from_numpy(data["render/rays_d"])
     sharded = dp.make_sharded_render(st, mesh, num_samples=32, max_steps=256)(params, occ, o, d)
     for k, v in sharded.items():
