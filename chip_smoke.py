@@ -25,7 +25,10 @@ Phases (one line each; any failure exits non-zero before the result lines):
      that runs K3);
   4. main path: the --ff -O event trainer at full field width (16 x 2
      levels, blk4, 2^19 hash budget, hidden 64, geo 15, SH 4) on the
-     synthetic event scene, one epoch of 48 steps as three 16-step
+     synthetic event scene, its chains built on the card by E1 and held
+     bit for bit, field by field, to the plain build of the same events
+     before the steps (E1 launched for the sort and the group tables),
+     one epoch of 48 steps as three 16-step
      windows (fuse_steps 16, train/chunk.py: the occupancy update at each
      window's start, one step captured in a CUDA graph and replayed)
      through train(train, val, 1): a checkpoint and the affine-corrected
@@ -106,8 +109,9 @@ Phases (one line each; any failure exits non-zero before the result lines):
      the second; one capture): steps/s of each epoch, peak memory, the
      checkpoint's and the evaluation's seconds (one 480 x 640 view), PSNR
      and LPIPS; finite losses and PSNR; one more step split into its
-     parts; save_mesh(256, 10.0); then the same two epochs on the per-step
-     path (--fuse_steps 1): steps/s and peak memory against the windows';
+     parts; save_mesh(256, 10.0) (the per-step path's two epochs beside
+     the windows' were dropped to keep the smoke in its time: they
+     matched within 1.01x);
  13. events + frames from the esim loader at the published width:
      configs/shakeCarpet1/shakeCarpet1_enerfBoth.txt (images_corrupted,
      the scene's pose offset), 8 steps: steps/s and peak memory; a
@@ -137,6 +141,21 @@ Phases (one line each; any failure exits non-zero before the result lines):
      q95 and gray, and textured frames: 720 x 1280 colour, 1024 x 1024 gray,
      the size of TUM-VIE's frame cameras), the map build's seconds, the
      remap's ms a frame and the tool's seconds;
+ 15c. event chains (kernel E1, csrc/event_chains.cu): E1 against its plain
+     version (the lexsort route), bit-equal on the sort, the group tables
+     and every field of build_event_chains, on the events phases 11, 15
+     (after 15b's preparation: fractional coordinates through the rectify
+     map) and 17 hand their providers, on 10^7 synthetic events at 1280 x
+     720 in 19 windows (sorted times, a hot pixel of 10^4 events at equal
+     times, fractional coordinates) and on 10^6 with shuffled times; the
+     fixtures' events below pixel 0, if any; then 10^8 events made on the
+     card: E1's own checks (a permutation, keys non-decreasing, indices
+     ascending within a group, the group ids) and at 10^7 and 10^8 E1's
+     ms and its split (pre-pass, histogram, scan, scatter, fix-up with the
+     group ids), torch.argsort(stable=True)'s ms, the bound in bytes, and
+     build_event_chains end to end on the card at both sizes (plain at
+     10^7); E1's launches on the main path (phase 4's provider) and in
+     phases 16 and 17;
  16. configs/mocapDesk2/mocapDesk2_enerf.txt as published (tumvie, event
      only, 2 renders of 20,096 rays x 512 steps, the stereo event views)
      on the directory phase 15b prepared (its JPEG frames decoded by the
@@ -144,11 +163,12 @@ Phases (one line each; any failure exits non-zero before the result lines):
      under torch.cuda.set_sync_debug_mode("error") (the window is drawn
      on the card), two 16-step epochs (one graphed window each, as in
      12) and one evaluation (a 720 x 1280 frame view and its stereo
-     event view), then the two epochs on the per-step path: steps/s, peak
+     event view): steps/s, peak
      memory (allocated and reserved), each view's seconds, LPIPS, the
      stereo PNG and _raw.npy, finite losses, the run diagnostics (the card
      has no matplotlib: the numeric images only), K1 / K2 / K3 launches on
-     the path; a torch.OutOfMemoryError as published is printed as the
+     the path, the load split (H5 read, chains, pose precompute, the rest);
+     a torch.OutOfMemoryError as published is printed as the
      config's result and the phase reruns with --remat_fixed 1;
  17. configs/eds11/eds11_enerf.txt as published (eds, event only, the
      no-event pairs: 2 x 30,096 + 2 x 15,048 rays x 512 steps) on an EDS
@@ -808,14 +828,30 @@ def phase_main_path(workspace):
     cfg = smoke_config(workspace)
     trainer = Trainer(cfg, device="cuda", workspace=workspace)
     meta = trainer.static.grid_meta
+    reset_e1()  # E1 runs where the provider builds the chains
     print(f"[main] field: {meta.num_levels}x{meta.level_dim} levels, blk{meta.block}, "
           f"{meta.total_rows} rows x {meta.row_cells * meta.level_dim} f32 "
           f"({meta.total_rows * meta.row_cells * meta.level_dim * 4 / 1e6:.1f} MB table), "
           f"fused head {trainer.static.use_fused_head}, compute {trainer.static.compute_dtype}")
     t0 = time.time()
-    train, val = make_providers(cfg, device=trainer.device)
+    built = record_chain_builds()
+    try:
+        train, val = make_providers(cfg, device=trainer.device)
+    finally:
+        built = built()
     print(f"[main] synthetic data {cfg.H}x{cfg.W}: {time.time() - t0:.1f} s; "
-          f"{len(val.val_views())} val views")
+          f"{len(val.val_views())} val views; chains built on the card in "
+          f"{train.load_seconds['chains']:.3f} s")
+    # E1 against its plain version on the main path's own events, before the
+    # steps (the plain build launches nothing, so the counts stay the path's)
+    if not built or not any(c is train.chains for _, c, _ in built):
+        raise AssertionError("the main path's provider built no chains through "
+                             "build_event_chains")
+    err = max(e1_check_build(*b) for b in built)
+    print(f"[main] E1's chains on the main path: {len(built)} build(s) of "
+          f"{sum(len(a[0]) for a, _, _ in built)} events, every field bit-equal to the plain "
+          f"version's on the same events (max abs err {err})")
+    MAIN_E1["max_abs_err"] = err
     steps = 48
     train.steps_per_epoch = steps
     # the steps' march host syncs and M1 launches apart from the evaluation's
@@ -878,6 +914,11 @@ def phase_main_path(workspace):
         raise AssertionError("the main path's table backward is index_add_, yet K2 launched")
     if not all(np.isfinite(res.get(k, np.nan)) for k in ("psnr_corrected", "ssim_corrected")):
         raise AssertionError(f"evaluation gave no finite corrected metrics: {res}")
+    e1 = e1_launches()
+    print(f"[main] E1 launches on the main path: {e1} (sort, group tables)")
+    if not (e1[0] and e1[1]):
+        raise AssertionError("the main path's chains were not built by E1")
+    MAIN_E1["launches"] = e1
     return trainer, train, val, launches, march_rays.launches
 
 
@@ -2120,43 +2161,12 @@ def window_epochs(tag, trainer, steps):
     return steps / secs[0], steps / secs[1]
 
 
-def per_step_epochs(tag, name, make_cfg, workspace, steps, providers, window):
-    """Two `steps`-step epochs of the per-step path (--fuse_steps 1) on the
-    same providers, against the windows' (window_epochs, peak memory)."""
-    import numpy as np
-    import torch
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    cfg1 = make_cfg("--fuse_steps", "1")
-    trainer, _, _, peak1 = esim_run(cfg1, workspace, steps, evaluate=False,
-                                    providers=providers, epochs=2)
-    secs = [trainer.seconds_by_epoch[e]["steps"] for e in (1, 2)]
-    losses1 = [aux["loss"] for _, aux in trainer.history]
-    reserved1 = trainer.peak_reserved_gib
-    print(f"[{tag}] {name} on the per-step path (--fuse_steps 1), the same 2 x {steps} steps: "
-          f"{steps / secs[0]:.4f} / {steps / secs[1]:.4f} steps/s, peak memory {peak1:.2f} GiB "
-          f"allocated, {reserved1:.2f} GiB reserved; epoch 2 in windows "
-          f"{window['replay_steps_s'] / (steps / secs[1]):.3f}x the per-step epoch 2's steps/s "
-          f"(epoch 1: {window['steps_s'] / (steps / secs[0]):.3f}x) at "
-          f"{window['peak_gib'] - peak1:+.2f} GiB allocated, "
-          f"{window['peak_reserved_gib'] - reserved1:+.2f} GiB reserved")
-    if not (len(losses1) == 2 * steps and np.isfinite(losses1).all()):
-        raise AssertionError(f"{name} per-step losses: {losses1}")
-    del trainer
-    gc.collect()
-    torch.cuda.empty_cache()
-    return dict(window, per_step_steps_s=steps / secs[0], per_step_epoch2_steps_s=steps / secs[1],
-                per_step_peak_gib=peak1, per_step_peak_reserved_gib=reserved1)
-
-
 def phase_esim_frames(datadir, workspace):
     """configs/spiral1/spiral1_nerf.txt as published (frames mode, hash
     grid, 480 x 640, 30,096 rays x 512 steps) on the fixture: two 16-step
     epochs, one graphed window each (fuse_steps 16, the default; captured
     in the first, replayed in the second), a checkpoint each and the
-    evaluation of one view after the second; then the same epochs on the
-    per-step path (--fuse_steps 1), for steps/s and peak memory."""
+    evaluation of one view after the second."""
     import numpy as np
     import torch
 
@@ -2169,7 +2179,7 @@ def phase_esim_frames(datadir, workspace):
                            "--eval_interval", "2", *extra)
 
     cfg = make_cfg(workspace)
-    trainer, (train, val), load, peak = esim_run(cfg, workspace, steps, evaluate=True,
+    trainer, (train, _), load, peak = esim_run(cfg, workspace, steps, evaluate=True,
                                                  epochs=2)
     secs, res = trainer.epoch_seconds, trainer.last_eval
     losses = [aux["loss"] for _, aux in trainer.history]
@@ -2187,12 +2197,8 @@ def phase_esim_frames(datadir, workspace):
         raise AssertionError(f"spiral1_nerf evaluation gave no finite psnr: {res}")
     phase_frames_breakdown(trainer, train)
     phase_mesh("esim-frames", trainer)
-    window = dict(steps_s=first, replay_steps_s=replay, peak_gib=peak,
-                  peak_reserved_gib=trainer.peak_reserved_gib)
-    del trainer
-    ws = workspace + "_per_step"
-    return per_step_epochs("esim-frames", "spiral1_nerf", lambda *e: make_cfg(ws, *e), ws,
-                           steps, (train, val), window)
+    return dict(steps_s=first, replay_steps_s=replay, peak_gib=peak,
+                peak_reserved_gib=trainer.peak_reserved_gib)
 
 
 def device_busy(fn):
@@ -2565,6 +2571,297 @@ def phase_prep(datadir):
                 codec_ms={k: v[:2] for k, v in times.items()})
 
 
+MAIN_E1 = {}      # E1's (sort, group tables) launches on the main path, its max abs err there
+LOAD_SPLITS = {}  # phase 16 / 17's load split
+E1_W, E1_H, E1_FRAMES = 1280, 720, 19  # TUM-VIE's event camera, mocapDesk2's 19 train frames
+CHAIN_FIELDS = ("xs", "ys", "ts", "pols", "cum_pols", "num_successors", "group_offset",
+                "group_count", "frame_bounds", "pixel_bounds")
+
+
+def reset_e1():
+    from enerf_torch.data import native_events
+    native_events.sort_events_by_pixel.launches = native_events.group_tables.launches = 0
+
+
+def e1_launches():
+    from enerf_torch.data import native_events
+    return [native_events.sort_events_by_pixel.launches, native_events.group_tables.launches]
+
+
+def as_np(x):
+    import numpy as np
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def max_abs_diff(a, b):
+    """The largest |a - b| over two arrays (inf when their shapes differ)."""
+    import numpy as np
+    a, b = as_np(a), as_np(b)
+    if a.shape != b.shape:
+        return float("inf")
+    return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()) if a.size else 0.0
+
+
+def record_chain_builds():
+    """Record the provider's build_event_chains calls until the returned
+    function is called; it restores the provider and returns [(args,
+    chains, sorted times)]."""
+    from enerf_torch.data import provider
+    real, calls = provider.build_event_chains, []
+
+    def recording(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, *out))
+        return out
+
+    provider.build_event_chains = recording
+
+    def done():
+        provider.build_event_chains = real
+        return calls
+    return done
+
+
+def e1_check_build(args, chains, ts_sorted):
+    """Chains the card built (through E1) against the plain build of the
+    same events, every field bit for bit; returns the max abs difference."""
+    import numpy as np
+    from enerf_torch.data import events
+    ref, ref_ts = events.build_event_chains(*args[:3], device="cpu")
+    diffs = {k: max_abs_diff(getattr(chains, k), getattr(ref, k)) for k in CHAIN_FIELDS}
+    diffs["sorted times"] = max_abs_diff(ts_sorted, ref_ts)
+    bad = [k for k in CHAIN_FIELDS if not np.array_equal(as_np(getattr(chains, k)),
+                                                          as_np(getattr(ref, k)))]
+    bad += ["sorted times"] if not np.array_equal(ts_sorted, ref_ts) else []
+    if bad:
+        raise AssertionError(f"E1's chains differ from the plain version's in {bad}: {diffs}")
+    return max(diffs.values())
+
+
+def e1_compare(tag, ev, fids, n_frames):
+    """E1 against its plain version on one set of events: the sort, the
+    group tables and build_event_chains, every field bit for bit.  Returns
+    (seconds of build_event_chains on the card, of the plain version, ms of
+    the plain sort, the max abs difference over every field compared)."""
+    import numpy as np
+    import torch
+    from enerf_torch.data import events, native_events as ne
+
+    if fids is None:
+        fids, n_frames = np.zeros(len(ev), np.int64), 1
+    W, H = int(ev[:, 0].max()) + 2, int(ev[:, 1].max()) + 2
+    cols = [np.ascontiguousarray(a) for a in (ev[:, 0], ev[:, 1], ev[:, 2], fids)]
+    got = ne.sort_events_by_pixel(*(torch.as_tensor(a, device="cuda") for a in cols), W, H)
+    t0 = time.time()
+    ref = ne.sort_events_by_pixel(*(torch.as_tensor(a) for a in cols), W, H)
+    plain_ms = (time.time() - t0) * 1e3
+    pairs = list(zip(("order", "group_id"), got, ref))
+    pairs += zip(("counts", "offsets", "num_succ"), ne.group_tables(got[1], got[2]),
+                 ne.group_tables(ref[1], ref[2]))
+    bad = [k for k, a, b in pairs if not np.array_equal(as_np(a), as_np(b))]
+    bad += ["n_groups"] if got[2] != ref[2] else []
+    err = max([max_abs_diff(a, b) for _, a, b in pairs] + [abs(got[2] - ref[2])])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ck, tk = events.build_event_chains(ev, fids, n_frames, device="cuda")
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    t0 = time.time()
+    cp, tp = events.build_event_chains(ev, fids, n_frames, device="cpu")
+    t_plain = time.time() - t0
+    bad += [k for k in CHAIN_FIELDS if not np.array_equal(as_np(getattr(ck, k)),
+                                                           as_np(getattr(cp, k)))]
+    bad += ["sorted times"] if not np.array_equal(tk, tp) else []
+    err = max([err, max_abs_diff(tk, tp)]
+              + [max_abs_diff(getattr(ck, k), getattr(cp, k)) for k in CHAIN_FIELDS])
+    pix = (ev[:, 1].astype(np.float32).astype(np.int64) * W
+           + ev[:, 0].astype(np.float32).astype(np.int64))
+    print(f"[chains] {tag}: {len(ev)} events in {n_frames} window(s), {got[2]} groups, "
+          f"{int(ck.xs.shape[0])} chained; {int((pix < 0).sum())} events below pixel 0, "
+          f"{int((ev[:, :2] % 1 != 0).any(1).sum())} with fractional coordinates; E1 "
+          + ("bit-equal to the plain version on the sort, the group tables and every field"
+             if not bad else f"DIFFERS from the plain version in {bad}")
+          + f" (max abs err {err}); build_event_chains {t_card:.3f} s on the card, "
+          f"{t_plain:.3f} s plain")
+    if bad:
+        raise AssertionError(f"E1 differs from its plain version on {tag}: {bad}")
+    return t_card, t_plain, plain_ms, err
+
+
+def synthetic_events(n, seed, shuffled=False):
+    """n events at 1280 x 720 in 19 windows: sorted times (ns over 10 s),
+    10% of the coordinates fractional (some that float32 rounds up to the
+    next pixel), one hot pixel of 10^4 events at times on a 1 ms grid
+    (equal times there); shuffled: the rows permuted."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ev = np.empty((n, 4))
+    ev[:, 0] = rng.integers(0, E1_W - 1, n)
+    ev[:, 1] = rng.integers(0, E1_H - 1, n)
+    ev[:, 2] = rng.uniform(0, 1e10, n)
+    ev[:, 3] = rng.choice([-1.0, 1.0], n)
+    frac = rng.random(n) < 0.1
+    ev[frac, 0] += rng.choice([0.25, 0.5, 0.99999999, 1 - 1e-12], int(frac.sum()))
+    ev[frac, 1] += rng.choice([0.5, 0.999999999], int(frac.sum()))
+    hot = rng.choice(n, 10_000, replace=False)
+    ev[hot, 0], ev[hot, 1] = 640.0, 360.0
+    ev[hot, 2] = np.round(ev[hot, 2] / 1e6) * 1e6
+    ev = ev[np.argsort(ev[:, 2], kind="stable")]
+    fids = np.minimum((ev[:, 2] / 1e10 * E1_FRAMES).astype(np.int64), E1_FRAMES - 1)
+    if shuffled:
+        p = rng.permutation(n)
+        ev, fids = ev[p], fids[p]
+    return ev, fids
+
+
+def e1_timing(n):
+    """E1 at n card-made events (1280 x 720, 19 windows, sorted times): its
+    own checks, its ms and split, torch.argsort(stable=True)'s ms on the
+    composite keys, the bound, and build_event_chains end to end."""
+    import numpy as np
+    import torch
+    from enerf_torch.data import events, native_events as ne
+
+    g = torch.Generator(device="cuda").manual_seed(n % 1000 + 1)
+    xs = torch.randint(0, E1_W, (n,), device="cuda", generator=g).float()
+    ys = torch.randint(0, E1_H, (n,), device="cuda", generator=g).float()
+    ts = torch.sort(torch.rand(n, device="cuda", generator=g, dtype=torch.float64))[0]
+    fids = (ts * E1_FRAMES).clamp(max=E1_FRAMES - 1).to(torch.int32)
+    W, H = E1_W + 1, E1_H + 1  # build_event_chains' int(max) + 2
+    splits, totals = [], []
+    for rep in range(4):
+        marks = []
+        order, gid, ng = ne.sort_events_by_pixel(xs, ys, ts, fids, W, H, marks=marks)
+        torch.cuda.synchronize()
+        if rep:  # the first call builds nothing here, but warms the allocator
+            splits.append([marks[i - 1][1].elapsed_time(e) for i, (_, e) in enumerate(marks)
+                           if i])
+            totals.append(marks[0][1].elapsed_time(marks[-1][1]))
+    stages = [k for k, _ in marks[1:]]
+    key = (fids.long() * H + ys.long()) * W + xs.long()
+    ks = key[order]
+    seen = torch.zeros(n, dtype=torch.bool, device="cuda")
+    seen[order] = True
+    same = ks[1:] == ks[:-1]
+    checks = dict(
+        permutation=bool(seen.all()),
+        keys_non_decreasing=bool((ks[1:] >= ks[:-1]).all()),
+        ascending_in_group=bool((order[1:] > order[:-1])[same].all()),
+        group_ids=bool(gid[0] == 0) and bool(((gid[1:] - gid[:-1]) == (~same).long()).all())
+        and ng == int(gid[-1]) + 1)
+    del seen, ks, same, gid
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    lib = []
+    for _ in range(3):
+        start.record()
+        ref = torch.argsort(key, stable=True)
+        end.record()
+        end.synchronize()
+        lib.append(start.elapsed_time(end))
+    lib_equal = bool((ref == order).all())
+    del ref, key, order
+    ms = float(np.mean(totals))
+    split = {k: float(np.mean([sp[i] for sp in splits])) for i, k in enumerate(stages)}
+    nbytes = n * (4 + 4 + 8 + 4 + 8 + 8)  # x, y f32, t f64, frame i32 in; order, group ids out
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    # build_event_chains end to end: host events [n, 4] float64 in
+    ev = torch.stack([xs.double(), ys.double(), ts * 1e10,
+                      torch.where(torch.rand(n, device="cuda", generator=g) < 0.5, -1.0, 1.0
+                                  ).double()], 1).cpu().numpy()
+    fid_np = fids.long().cpu().numpy()
+    del xs, ys, ts, fids
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    chains, _ = events.build_event_chains(ev, fid_np, E1_FRAMES, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    chained = int(chains.xs.shape[0])
+    del chains, ev, fid_np
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[chains] E1 at {n} events (card-made, {E1_H}x{E1_W}, {E1_FRAMES} windows, "
+          f"{ng} groups): own checks {checks}; E1 {ms:.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"); torch.argsort(stable=True) of the int64 keys {np.mean(lib):.4f} ms "
+          f"({'the same order' if lib_equal else 'ANOTHER order'}); bound {bound:.4f} ms "
+          f"(bytes, {nbytes / 1e9:.3f} GB), E1 at {100 * bound / ms:.1f}% of it; "
+          f"build_event_chains on the card {t_build:.3f} s ({chained} chained events)")
+    if not (all(checks.values()) and lib_equal):
+        raise AssertionError(f"E1 at {n} events failed its own checks: {checks}, argsort "
+                             f"equal {lib_equal}")
+    return dict(ms=ms, split=split, library_ms=float(np.mean(lib)), bound_ms=bound,
+                bound_by="bytes", build_s=t_build, groups=ng)
+
+
+def phase_event_chains(esim_data, tumvie_dir, eds_dir):
+    """Phase 15c: E1 against its plain version on the fixtures' events and
+    on synthetic ones at the published size, its own checks and timings at
+    10^7 and 10^8 events (the docstring's list)."""
+    import numpy as np
+    import torch
+    from enerf_torch.__main__ import get_select_frames
+    from enerf_torch.data import native_events as ne
+    from enerf_torch.data.provider import _load_stereo_dataset
+
+    reset_e1()
+    errs = [e1_compare("phase 11's esim fixture (480 x 640, one window)", esim_data["events"],
+                       None, 1)[3]]
+    for tag, config, d in (("phase 15's tumvie fixture, prepared", "mocapDesk2/mocapDesk2_enerf.txt",
+                            tumvie_dir),
+                           ("phase 17's eds fixture", "eds11/eds11_enerf.txt", eds_dir)):
+        cfg = stereo_config(config, d, os.path.join(REPO, "build", "chip_smoke_chains"))
+        data = _load_stereo_dataset(cfg, get_select_frames(cfg))
+        fids = data["event_frame_ids"]
+        errs.append(e1_compare(tag, data["events"], fids, int(fids.max()) + 1)[3])
+    ev, fids = synthetic_events(10 ** 7, 0)
+    t_card7, t_plain7, plain_ms, err = e1_compare(
+        f"10^7 synthetic events ({E1_H}x{E1_W}, {E1_FRAMES} windows, sorted times, a hot "
+        "pixel of 10^4 at equal times)", ev, fids, E1_FRAMES)
+    errs.append(err)
+    # E1's and torch.argsort's time on the same events, against the plain sort's
+    W7, H7 = int(ev[:, 0].max()) + 2, int(ev[:, 1].max()) + 2
+    xs, ys, ts, fid = (torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+                       for a in (ev[:, 0], ev[:, 1], ev[:, 2], fids))
+    totals = []
+    for _ in range(4):
+        marks = []
+        ne.sort_events_by_pixel(xs, ys, ts, fid, W7, H7, marks=marks)
+        torch.cuda.synchronize()
+        totals.append(marks[0][1].elapsed_time(marks[-1][1]))
+    ms7 = float(np.mean(totals[1:]))
+    key = (fid * H7 + ys.float().long()) * W7 + xs.float().long()  # times sorted: lexsort's order
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    lib = []
+    for _ in range(3):
+        start.record()
+        torch.argsort(key, stable=True)
+        end.record()
+        end.synchronize()
+        lib.append(start.elapsed_time(end))
+    lib7 = float(np.mean(lib))
+    bound7 = len(ev) * (4 + 4 + 8 + 4 + 8 + 8) / HBM_BYTES_PER_S * 1e3
+    del ev, fids, xs, ys, ts, fid, key
+    ev, fids = synthetic_events(10 ** 6, 1, shuffled=True)
+    errs.append(e1_compare("10^6 synthetic events, shuffled times", ev, fids, E1_FRAMES)[3])
+    del ev, fids
+    compared = e1_launches()
+    t7, t8 = e1_timing(10 ** 7), e1_timing(10 ** 8)
+    print(f"[chains] E1 launches in this phase: {compared} (sort, group tables) in the "
+          f"comparisons; on the 10^7 synthetic events: the plain sort {plain_ms:.1f} ms, E1 "
+          f"{ms7:.4f} ms, torch.argsort(stable=True) {lib7:.4f} ms, bound {bound7:.4f} ms "
+          f"(bytes), E1 at {100 * bound7 / ms7:.1f}% of it; build_event_chains at 10^7 "
+          f"{t_card7:.3f} s on the card, {t_plain7:.3f} s plain; at 10^8 {t8['build_s']:.3f} s "
+          f"on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(errs), ms=ms7, plain_ms=plain_ms, bound_ms=bound7,
+                bound_by="bytes", library_ms=lib7,
+                card_made_1e7=t7, card_made_1e8=t8, build_s_1e7=t_card7,
+                plain_build_s_1e7=t_plain7, build_s_1e8=t8["build_s"])
+
+
 def stereo_config(config, datadir, workspace, *extra):
     """A published tumvie / eds config as published, on a fixture: its
     train / val indices cut to the fixture's frames (the only cut),
@@ -2587,11 +2884,33 @@ def phase_stereo(tag, config, datadir, workspace, steps):
     from enerf_torch.data.provider import make_providers
     from enerf_torch.ops import fused_mlp, group_gather, scatter_accum
 
+    from enerf_torch.data import eds, tumvie
+
     name = os.path.basename(config)[:-4]
     cfg = stereo_config(config, datadir, workspace, "--iters", str(steps))
-    t0 = time.time()
-    train, val = make_providers(cfg, get_select_frames(cfg))
-    load = time.time() - t0
+    reset_e1()
+    h5_read = []
+    real = tumvie.read_events
+
+    def timed_read(*a, **kw):  # the loaders' H5 read (events and rectify map)
+        t = time.time()
+        out = real(*a, **kw)
+        h5_read.append(time.time() - t)
+        return out
+
+    tumvie.read_events = eds.read_events = timed_read
+    try:
+        t0 = time.time()
+        train, val = make_providers(cfg, get_select_frames(cfg))
+        load = time.time() - t0
+    finally:
+        tumvie.read_events = eds.read_events = real
+    split = dict(h5_read=sum(h5_read), **train.load_seconds)
+    split["rest"] = load - sum(split.values())
+    print(f"[{tag}] {name}: load {load:.3f} s = "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+          + f"; E1 launches {e1_launches()} (sort, group tables)")
+    LOAD_SPLITS[tag] = dict(split, load=load, e1=e1_launches())
     gen = torch.Generator(device=train.device).manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")  # a host sync in the batch raises
@@ -2656,13 +2975,8 @@ def phase_stereo(tag, config, datadir, workspace, steps):
     if epochs == 1:
         return None
     first, replay = window_epochs(tag, trainer, steps)
-    window = dict(steps_s=first, replay_steps_s=replay, peak_gib=peak,
-                  peak_reserved_gib=trainer.peak_reserved_gib)
-    del trainer
-    ws = workspace + "_per_step"
-    extra = () if label == "as published" else REMAT[1]
-    return per_step_epochs(tag, f"{name} {label}", lambda *e: make_cfg(ws, *extra, *e), ws,
-                           steps, (train, val), window)
+    return dict(steps_s=first, replay_steps_s=replay, peak_gib=peak,
+                peak_reserved_gib=trainer.peak_reserved_gib)
 
 
 def reset_launches():
@@ -3498,13 +3812,14 @@ def main():
         k1_frames = phase_frames_march(os.path.join(REPO, "build", "chip_smoke_frames_march"))
         tumvie_dir = phase_tumvie_fixture(os.path.join(REPO, "build", "chip_smoke_tumvie"))
         phase_prep(tumvie_dir)
+        eds_dir = phase_eds_fixture(esim_data, os.path.join(REPO, "build", "chip_smoke_eds"))
+        e1 = phase_event_chains(esim_data, tumvie_dir, eds_dir)
         gc.collect()
         torch.cuda.empty_cache()
         mocap = phase_stereo("tumvie", "mocapDesk2/mocapDesk2_enerf.txt", tumvie_dir,
                              os.path.join(REPO, "build", "chip_smoke_mocapdesk2"), steps=16)
         gc.collect()
         torch.cuda.empty_cache()
-        eds_dir = phase_eds_fixture(esim_data, os.path.join(REPO, "build", "chip_smoke_eds"))
         phase_stereo("eds", "eds11/eds11_enerf.txt", eds_dir,
                      os.path.join(REPO, "build", "chip_smoke_eds11"), steps=4)
         gc.collect()
@@ -3567,6 +3882,16 @@ def main():
             bench_dt_gamma=m1["bench_dt_gamma"], infer_first_window=m1_infer["first"],
             infer_last_window=m1_infer["last"], window=window, spiral1_window=spiral1,
             mocapdesk2_window=mocap),
+        dict({
+            "name": "event_chains", "route": "cuda",
+            "source": "enerf_torch/csrc/event_chains.cu",
+            # a host C++ library of the JAX package (native/event_preproc.cpp
+            # through ctypes), not a Pallas kernel
+            "replaces": "enerf_tpu/data/native_events.py:63",
+            "launches": sum(MAIN_E1["launches"]), "launches_sort_tables": MAIN_E1["launches"],
+            "max_abs_err_main_path": MAIN_E1["max_abs_err"]},
+            **dict(e1, max_abs_err=max(e1["max_abs_err"], MAIN_E1["max_abs_err"])),
+            load_splits=LOAD_SPLITS),
     ]}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Per-pixel event chains + batch sampling.
 
 Counterpart of enerf_tpu/data/events.py (reference provider.py:1146-1219,
-1363-1448).  Chains are built once on the host (one vectorized lexsort:
-frame, then pixel, then time); sampling runs on the chains' device.  The
+1363-1448).  Chains are built once, on the chains' device (the sort by
+frame, then pixel, then time is kernel E1 on the card,
+data/native_events.py); sampling runs there too.  The
 frame and pixel bounds are kept twice: as numpy on the host, for a frame
 given as an int (one event window), and on the device, for a frame drawn
 there (the per-image windows of tumvie / eds), so that neither costs a
@@ -17,6 +18,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from enerf_torch.data import native_events
 
 
 class EventChains(NamedTuple):
@@ -37,7 +40,14 @@ class EventChains(NamedTuple):
 
 
 def build_event_chains(events, frame_ids=None, n_frames=1, device="cpu"):
-    """[M, 4] (x, y, t, pol) events -> (EventChains, sorted event times)."""
+    """[M, 4] (x, y, t, pol) events -> (EventChains, sorted event times).
+
+    The events go to `device` once; the sort and the group tables run
+    there (native_events: kernel E1 on the card, the plain lexsort on the
+    CPU), and so does the rest: the < 2 filter, the group ids made dense
+    again, the successors, cum_pols and the bounds.  Both routes give the
+    same chains bit for bit.  The pixel key comes from float32
+    coordinates, as in the JAX package's native path."""
     ev = np.asarray(events, np.float64)
     M = ev.shape[0]
     if frame_ids is None:
@@ -45,59 +55,54 @@ def build_event_chains(events, frame_ids=None, n_frames=1, device="cpu"):
         n_frames = 1
     frame_ids = np.asarray(frame_ids, np.int64)
     W = int(ev[:, 0].max()) + 2 if M else 2
-    H = int(ev[:, 1].max()) + 2 if M else 2
+    dev = torch.device(device)
+    evd = torch.as_tensor(ev, device=dev)
+    fid = torch.as_tensor(frame_ids, device=dev)
 
-    pix = ev[:, 1].astype(np.int64) * W + ev[:, 0].astype(np.int64)
-    order = np.lexsort((ev[:, 2], pix, frame_ids))
-    ev, pix, frame_ids = ev[order], pix[order], frame_ids[order]
-    key = frame_ids * np.int64(W) * H + pix
-    new_group = np.ones(M, bool)
-    new_group[1:] = key[1:] != key[:-1]
-    group_id = np.cumsum(new_group) - 1
-    counts = np.bincount(group_id)
-
-    # drop groups with < 2 events (no successor possible)
-    keep = (counts >= 2)[group_id]
-    ev, frame_ids, group_id = ev[keep], frame_ids[keep], group_id[keep]
-    if ev.shape[0] == 0:
+    order, group_id, counts = native_events.sort_and_count(
+        evd[:, 0], evd[:, 1], evd[:, 2], fid, W)
+    # drop groups with < 2 events (no successor possible); the kept groups
+    # are numbered again in order
+    keep_group = counts >= 2
+    keep = keep_group[group_id]
+    sel = order[keep]
+    if sel.numel() == 0:
         raise ValueError(
             "no event chains: no pixel has >= 2 events within a frame "
             "interval — the event stream is too sparse for the chosen "
             "frame grouping (reference provider.py:1164 filter)")
-    _, group_id = np.unique(group_id, return_inverse=True)
-    counts = np.bincount(group_id)
-    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    num_succ = counts[group_id] - (np.arange(ev.shape[0]) - offsets[group_id]) - 1
+    dense = torch.cumsum(keep_group, 0) - 1
+    group_id = dense[group_id[keep]]
+    counts, offsets, num_succ = native_events.group_tables(group_id, int(dense[-1]) + 1)
+    ev_s = evd[sel]
+    frames = fid[sel]
 
-    frame_bounds = np.zeros((n_frames, 2), np.int64)
-    pixel_bounds = np.zeros((n_frames, 2), np.int64)
-    group_frame = frame_ids[offsets]
-    for f in range(n_frames):
-        idx = np.nonzero(frame_ids == f)[0]
-        if idx.size:
-            frame_bounds[f] = (idx[0], idx[-1] + 1)
-        gidx = np.nonzero(group_frame == f)[0]
-        if gidx.size:
-            pixel_bounds[f] = (gidx[0], gidx[-1] + 1)
+    def bounds(sorted_ids):
+        f = torch.arange(n_frames, dtype=sorted_ids.dtype, device=dev)
+        lo = torch.searchsorted(sorted_ids, f)
+        hi = torch.searchsorted(sorted_ids, f, right=True)
+        has = hi > lo
+        return torch.stack([torch.where(has, lo, 0), torch.where(has, hi, 0)], 1)
 
-    def dev(a, dtype):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-
+    frame_bounds = bounds(frames)
+    pixel_bounds = bounds(frames[offsets])
+    ts_sorted = ev_s[:, 2]
     chains = EventChains(
-        xs=dev(ev[:, 0], torch.float32),
-        ys=dev(ev[:, 1], torch.float32),
-        ts=dev(ev[:, 2], torch.float32),
-        pols=dev(ev[:, 3], torch.float32),
-        cum_pols=dev(np.cumsum(ev[:, 3]), torch.float32),
-        num_successors=dev(num_succ, torch.int64),
-        group_offset=dev(offsets, torch.int64),
-        group_count=dev(counts, torch.int64),
-        frame_bounds=frame_bounds,
-        pixel_bounds=pixel_bounds,
-        frame_bounds_dev=dev(frame_bounds, torch.int64),
-        pixel_bounds_dev=dev(pixel_bounds, torch.int64),
+        xs=ev_s[:, 0].float(),
+        ys=ev_s[:, 1].float(),
+        ts=ts_sorted.float(),
+        pols=ev_s[:, 3].float(),
+        # exact for integer polarities on either device
+        cum_pols=torch.cumsum(ev_s[:, 3], 0).float(),
+        num_successors=num_succ,
+        group_offset=offsets,
+        group_count=counts,
+        frame_bounds=frame_bounds.cpu().numpy(),
+        pixel_bounds=pixel_bounds.cpu().numpy(),
+        frame_bounds_dev=frame_bounds,
+        pixel_bounds_dev=pixel_bounds,
     )
-    return chains, ev[:, 2].copy()
+    return chains, ts_sorted.contiguous().cpu().numpy()
 
 
 def sample_event_batch(chains, frame, batch_size, *, generator=None,

@@ -27,6 +27,7 @@ transfer and no sync.
 import glob
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -504,8 +505,13 @@ class EventProvider:
                  noev_chunk_frac=0.05, frames=None, frame_poses=None, num_rays=4096,
                  event_frame_ids=None, n_frames=1, intrinsics_evs=None, device="cpu"):
         self.device = torch.device(device)
+        # seconds of each part of the load: the chains, the pose precompute
+        # (both end in a copy to the host or from it, so the clock is the device's too)
+        self.load_seconds = {}
+        t0 = time.time()
         self.chains, ev_ts_sorted = build_event_chains(events, event_frame_ids, n_frames,
                                                        device=self.device)
+        self.load_seconds["chains"] = time.time() - t0
         self.n_frames = n_frames if event_frame_ids is not None else 1
         # keyframe poses as (quat, trans) for the device interpolation
         hf_poses = np.asarray(hf_poses, np.float64)
@@ -516,10 +522,12 @@ class EventProvider:
         self.key_trans = torch.as_tensor(hf_poses[:, :3, 3], dtype=torch.float32,
                                          device=self.device)
         self.poses_evs = None
+        t0 = time.time()
         if precompute_evs_poses:
             # exact host Slerp + cubic per event (48 bytes/event on the device)
             interp = make_pose_interpolator(hf_ts, hf_poses)
             self.poses_evs = torch.as_tensor(interp(ev_ts_sorted), device=self.device)
+        self.load_seconds["poses"] = time.time() - t0
         self.noev_coords = None
         if negative_event_sampling and len(events):
             arrs = noev_arrays(events, H, W, noev_chunk_frac)

@@ -1,9 +1,17 @@
 """The port's HDF5 reader and writer (enerf_torch/utils/hdf5.py) against
-h5py: files h5py writes (flat and grouped, the event streams' dtypes,
-scalars, contiguous, compact and chunked data with deflate, shuffle and
-fletcher32, multi-level chunk B-trees, continuation blocks, fill values)
-read equal, slice by slice; files the port writes read back equal through
-h5py; and what the reader does not support raises, naming it."""
+h5py: files h5py writes at each `libver` ('earliest', 'v108', 'v110',
+'latest': superblocks 0-3, version-1 and -2 object headers) read equal,
+slice by slice: the event streams' dtypes and big-endian ones, scalars,
+contiguous, compact and chunked data with deflate, shuffle, fletcher32,
+lzf and scale-offset (values 7 bits and many bits wide; full-range ones,
+which HDF5 cannot read back, against the data written), every chunk
+index (version-1 B-trees of several levels, single chunk, implicit,
+fixed arrays with pages, extensible arrays with super blocks, version-2
+B-trees), continuation blocks, fill values,
+symbol-table, compact and dense groups (fractal heaps, name and
+creation-order indexes); a corrupted checksum and a corrupted fletcher32
+raise; files the port writes read back equal through h5py; and what the
+reader does not support raises, naming it."""
 
 import h5py
 import numpy as np
@@ -17,14 +25,37 @@ from enerf_torch.utils import hdf5
 
 DTYPES = [np.uint16, np.int8, np.int64, np.float32, np.float64, np.uint8, np.int16,
           np.uint32, np.int32, np.uint64]
+BIG_ENDIAN = [">i8", ">u2", ">f4", ">f8"]
+LIBVERS = ["earliest", "v108", "v110", "latest"]
 
 
-def _data(dtype, shape, seed=0):
+def _data(dtype, shape, seed=0, span="full"):
+    """Random values of a dtype.  Integers: span "full" over the whole
+    range; "narrow" in [3, 100) (7 bits a value under scale-offset);
+    "wide" over a quarter of the range (2 bits short of the width: 14 for
+    16-bit types, 62 or 63 for 64-bit ones).  HDF5's own scale-offset
+    filter fails to read back full-range integers of any width, so h5py
+    is the reference only for the other two."""
     rng = np.random.default_rng(seed)
-    if np.dtype(dtype).kind == "f":
+    dtype = np.dtype(dtype)
+    if dtype.kind == "f":
         return rng.normal(size=shape).astype(dtype)
+    if span == "narrow":
+        return rng.integers(3, 100, size=shape).astype(dtype)
     info = np.iinfo(dtype)
-    return rng.integers(info.min, info.max, size=shape, dtype=dtype, endpoint=True)
+    lo, hi = info.min, info.max
+    if span == "wide":
+        lo, hi = lo // 4, hi // 4
+    return rng.integers(lo, hi, size=shape, dtype=dtype.newbyteorder("="),
+                        endpoint=True).astype(dtype)
+
+
+def _early_allocation():
+    """A dataset creation property list with early allocation: HDF5's
+    implicit chunk index (libver v110 and later) for unfiltered chunks."""
+    dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+    dcpl.set_alloc_time(h5py.h5d.ALLOC_TIME_EARLY)
+    return dcpl
 
 
 def _slices(n):
@@ -50,19 +81,41 @@ STORAGE = {
     "shuffle_gzip_fletcher32": dict(chunks=(33,), compression="gzip", compression_opts=9,
                                     shuffle=True, fletcher32=True),
     "chunked_plain": dict(chunks=(16,)),
+    # a fixed array index of more than one 1024-entry page from v110 on
+    "paged": dict(chunks=(3,)),
+    "lzf": dict(chunks=(100,), compression="lzf", shuffle=True),
+    "scaleoffset": dict(chunks=(64,), scaleoffset=0),
+    # the same with values many bits wide: multi-byte unpacking, either byte order
+    "scaleoffset_wide": dict(chunks=(64,), scaleoffset=0),
+    # an extensible array index from v110 on (an appending recorder's layout)
+    "extensible_gzip": dict(chunks=(20,), maxshape=(None,), compression="gzip"),
+    "extensible_lzf": dict(chunks=(64,), maxshape=(None,), compression="lzf"),
+    "single_chunk": dict(chunks=(4000,)),
+    "single_chunk_gzip": dict(chunks=(4000,), compression="gzip", fletcher32=True),
+    "implicit": dict(chunks=(64,), dcpl="early"),
 }
 
 
+@pytest.mark.parametrize("libver", LIBVERS)
 @pytest.mark.parametrize("storage", list(STORAGE))
-def test_reader_matches_h5py_on_1d_datasets(tmp_path, storage):
-    """Every dtype of the event streams (and the other integers) in every
-    storage; 4,000 rows make the chunked datasets' B-trees two levels deep
-    (more than 64 chunks)."""
+def test_reader_matches_h5py_on_1d_datasets(tmp_path, storage, libver):
+    """Every dtype of the event streams (and the other integers, and
+    big-endian ones) in every storage at every libver; 4,000 rows make the
+    chunked datasets' version-1 B-trees two levels deep (more than 64
+    chunks)."""
     path = str(tmp_path / "a.h5")
-    arrays = {f"d_{np.dtype(dt).name}": _data(dt, (4000,), i) for i, dt in enumerate(DTYPES)}
-    with h5py.File(path, "w") as f:
+    dtypes = DTYPES + BIG_ENDIAN
+    span = {"scaleoffset": "narrow", "scaleoffset_wide": "wide"}.get(storage, "full")
+    if span != "full":  # scale-offset, on integers only
+        dtypes = [dt for dt in dtypes if np.dtype(dt).kind != "f"]
+    arrays = {f"d_{np.dtype(dt).str[1:]}_{i}": _data(dt, (4000,), i, span)
+              for i, dt in enumerate(dtypes)}
+    kw = dict(STORAGE[storage])
+    if kw.get("dcpl") == "early":
+        kw["dcpl"] = _early_allocation()
+    with h5py.File(path, "w", libver=libver) as f:
         for name, a in arrays.items():
-            f.create_dataset(name, data=a, **STORAGE[storage])
+            f.create_dataset(name, data=a, **kw)
     with h5py.File(path, "r") as ref, hdf5.File(path) as got:
         assert sorted(got.keys()) == sorted(ref.keys())
         for name in arrays:
@@ -73,14 +126,39 @@ def test_reader_matches_h5py_on_1d_datasets(tmp_path, storage):
                 _assert_same(dg[key], dr[key])
 
 
-@pytest.mark.parametrize("storage", ["contiguous", "compact", "chunked_gzip", "chunked_edges"])
-def test_reader_matches_h5py_on_nd_datasets(tmp_path, storage):
+@pytest.mark.parametrize("libver", ["earliest", "latest"])
+def test_scaleoffset_reads_full_range_integers(tmp_path, libver):
+    """Integers over their whole range: scale-offset stores each chunk
+    whole, in the writer's byte order (H5Zscaleoffset.c's full-precision
+    case).  HDF5's own filter fails to read these back, so the reference
+    is the data written."""
+    path = str(tmp_path / "so.h5")
+    arrays = {f"d_{np.dtype(dt).str[1:]}_{i}": _data(dt, (700,), i)
+              for i, dt in enumerate(DTYPES + BIG_ENDIAN) if np.dtype(dt).kind != "f"}
+    with h5py.File(path, "w", libver=libver) as f:
+        for name, a in arrays.items():
+            f.create_dataset(name, data=a, chunks=(64,), scaleoffset=0)
+    with hdf5.File(path) as got:
+        for name, a in arrays.items():
+            _assert_same(got[name][()], a)
+            _assert_same(got[name][5:300], a[5:300])
+
+
+ND_STORAGE = ["contiguous", "compact", "chunked_gzip", "chunked_edges", "extensible_rows",
+              "btree2", "btree2_lzf"]
+
+
+@pytest.mark.parametrize("libver", LIBVERS)
+@pytest.mark.parametrize("storage", ND_STORAGE)
+def test_reader_matches_h5py_on_nd_datasets(tmp_path, storage, libver):
     """A rectify map's shape ([H, W, 2] float32) and an int16 cube; chunks
-    that do not divide the shape leave partial edge chunks."""
+    that do not divide the shape leave partial edge chunks; rows that can
+    grow (an extensible array from v110 on) and every axis unlimited (a
+    version-2 B-tree index from v110 on)."""
     path = str(tmp_path / "nd.h5")
     arrays = {"rectify_map": _data(np.float32, (37, 29, 2), 1),
               "cube": _data(np.int16, (40, 3, 5), 2)}
-    with h5py.File(path, "w") as f:
+    with h5py.File(path, "w", libver=libver) as f:
         for name, a in arrays.items():
             kw = {}
             if storage == "compact":
@@ -92,6 +170,13 @@ def test_reader_matches_h5py_on_nd_datasets(tmp_path, storage):
             elif storage == "chunked_edges":
                 kw = dict(chunks=(6, 4, 2) if name == "rectify_map" else (6, 2, 3),
                           compression="gzip")
+            elif storage == "extensible_rows":
+                kw = dict(chunks=(5,) + a.shape[1:], maxshape=(None,) + a.shape[1:],
+                          compression="gzip")
+            elif storage.startswith("btree2"):
+                kw = dict(chunks=(6, 4, 2) if name == "rectify_map" else (6, 2, 3),
+                          maxshape=(None,) * 3,
+                          compression="lzf" if storage == "btree2_lzf" else None)
             f.create_dataset(name, data=a, **kw)
     with h5py.File(path, "r") as ref, hdf5.File(path) as got:
         for name, a in arrays.items():
@@ -101,13 +186,14 @@ def test_reader_matches_h5py_on_nd_datasets(tmp_path, storage):
                 _assert_same(got[name][key], ref[name][key])
 
 
-def test_reader_on_scalars_groups_continuations_and_fill_values(tmp_path):
+@pytest.mark.parametrize("libver", LIBVERS)
+def test_reader_on_scalars_groups_continuations_and_fill_values(tmp_path, libver):
     """Scalar datasets of each kind (t_offset is an int64 scalar), nested
     groups, an object header that spills into continuation blocks (many
     attributes, which the reader skips), and chunks never written (the
     fill value)."""
     path = str(tmp_path / "misc.h5")
-    with h5py.File(path, "w") as f:
+    with h5py.File(path, "w", libver=libver) as f:
         f.create_dataset("t_offset", data=np.int64(1_234_567_890_123))
         f.create_dataset("f32", data=np.float32(2.5))
         f.create_dataset("u8", data=np.uint8(200))
@@ -137,6 +223,65 @@ def test_reader_on_scalars_groups_continuations_and_fill_values(tmp_path):
             got["a/b/x"][300]
         with pytest.raises(IndexError):
             got["t_offset"][0]
+
+
+@pytest.mark.parametrize("libver", LIBVERS)
+def test_reader_on_compact_and_dense_groups(tmp_path, libver):
+    """Groups of 3 links (compact: link messages in the header from v108
+    on), 40 links (dense: a fractal heap and its name index) and 1,500
+    links (the heap's indirect blocks and a two-level name index), and
+    groups that track creation order (the creation-order index), nested."""
+    path = str(tmp_path / "groups.h5")
+    sizes = {"small": 3, "dense": 40, "wide": 1500}
+    with h5py.File(path, "w", libver=libver) as f:
+        for gname, n in sizes.items():
+            g = f.create_group(gname)
+            for i in range(n):
+                g.create_dataset(f"link_{i:04d}_{'x' * (i % 13)}", data=np.int32(i))
+        for n in (2, 12):
+            g = f.create_group(f"ordered_{n}", track_order=True)
+            for i in range(n):
+                sub = g.create_group(f"z{n - i:02d}", track_order=True)
+                sub.create_dataset("v", data=np.arange(i + 1, dtype=np.uint16))
+    with h5py.File(path, "r") as ref, hdf5.File(path) as got:
+        assert sorted(got.keys()) == sorted(ref.keys())
+        for gname in list(sizes) + ["ordered_2", "ordered_12"]:
+            assert sorted(got[gname].keys()) == sorted(ref[gname].keys())
+            for name in ref[gname].keys():
+                r = ref[gname][name]
+                key = f"{gname}/{name}" + ("/v" if isinstance(r, h5py.Group) else "")
+                _assert_same(got[key][()], ref[key][()])
+        assert "wide/link_0007_xxxxxxx" in got and "wide/link_0007" not in got
+
+
+def _corrupt(path, at):
+    with open(path, "r+b") as fh:
+        fh.seek(at)
+        byte = fh.read(1)
+        fh.seek(at)
+        fh.write(bytes([byte[0] ^ 0x10]))
+
+
+@pytest.mark.parametrize("case", ["checksum", "fletcher32"])
+def test_corrupted_files_raise(tmp_path, case):
+    """One flipped bit: in a dataset's version-2 object header (its lookup3
+    checksum), or in a chunk under fletcher32 (its Fletcher-32); h5py
+    refuses both too."""
+    path = str(tmp_path / f"{case}.h5")
+    data = np.arange(1000, dtype=np.int64)
+    with h5py.File(path, "w", libver="latest") as f:
+        d = f.create_dataset("x", data=data, chunks=(100,), fletcher32=True)
+        chunk = d.id.get_chunk_info(3).byte_offset
+    with hdf5.File(path) as f:
+        _assert_same(f["x"][()], data)
+    header = open(path, "rb").read().rindex(b"OHDR")  # the dataset's, after the root's
+    _corrupt(path, header + 40 if case == "checksum" else chunk + 17)
+    with pytest.raises((OSError, KeyError)):  # h5py: the header's checksum as a KeyError
+        with h5py.File(path, "r") as f:
+            f["x"][()]
+    with pytest.raises(ValueError, match="checksum mismatch"):
+        with hdf5.File(path) as f:
+            f["x"][()]
 
 
 @pytest.mark.parametrize("grouped,t_offset", [(False, None), (True, None), (False, 12_345),
@@ -185,24 +330,24 @@ def test_writer_round_trips_through_h5py(tmp_path):
         hdf5.write_datasets(str(tmp_path / "bad.h5"), {"a": np.ones(3), "a/b": np.ones(3)})
 
 
-@pytest.mark.parametrize("case", ["lzf", "libver_latest", "big_endian", "string",
-                                  "creation_order_group"])
+@pytest.mark.parametrize("case", ["szip", "external", "string", "compound", "vlen_string"])
 def test_unsupported_structures_raise_naming_them(tmp_path, case):
     path = str(tmp_path / f"{case}.h5")
-    match = {"lzf": "filter 32000 \\(lzf\\)", "libver_latest": "superblock version 3",
-             "big_endian": "big-endian", "string": "class 3 \\(string\\)",
-             "creation_order_group": "version-2 object headers"}[case]
-    with h5py.File(path, "w", libver="latest" if case == "libver_latest" else "earliest") as f:
-        if case == "lzf":
-            f.create_dataset("x", data=np.arange(100), compression="lzf")
-        elif case == "big_endian":
-            f.create_dataset("x", data=np.arange(10, dtype=">i8"))
+    match = {"szip": "filter 4 \\(szip\\)", "external": "external storage",
+             "string": "class 3 \\(string\\)", "compound": "class 6 \\(compound\\)",
+             "vlen_string": "class 9 \\(variable-length\\)"}[case]
+    with h5py.File(path, "w", libver="latest") as f:
+        if case == "szip":
+            f.create_dataset("x", data=np.arange(1000), chunks=(100,), compression="szip")
+        elif case == "external":
+            f.create_dataset("x", shape=(10,), dtype="i8",
+                             external=[(str(tmp_path / "x.bin"), 0, 80)])
         elif case == "string":
             f.create_dataset("x", data=np.bytes_("abc"))
-        elif case == "creation_order_group":
-            f.create_group("x", track_order=True)  # link messages in a v2 header
+        elif case == "compound":
+            f.create_dataset("x", data=np.zeros(3, dtype=[("a", "<i4"), ("b", "<f8")]))
         else:
-            f.create_dataset("x", data=np.arange(10))
+            f.create_dataset("x", data=np.array(["ab", "cde"], dtype=h5py.string_dtype()))
     with pytest.raises(NotImplementedError, match=match):
         with hdf5.File(path) as f:
             f["x"][()]

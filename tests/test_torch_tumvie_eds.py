@@ -11,6 +11,7 @@ and check_supported on every published tumvie / eds config."""
 import glob
 import json
 import os
+import shutil
 
 import cv2
 import h5py
@@ -189,6 +190,51 @@ def test_port_tumvie_writer_reads_back_through_jax(sim, tmp_path):
     kw = dict(scale=0.33, out_dim_color=1, pp_poses_sphere=False)
     _assert_data_equal(ttumvie.load_tumvie_dataset(d, **kw),
                        jtumvie.load_tumvie_dataset(d, **kw))
+
+
+def _rewrite_latest(path, compression):
+    """Rewrite an H5 file as h5py writes it with libver='latest': every
+    array chunked with its rows unlimited (an extensible-array chunk
+    index, as a recorder that appends writes), `compression` on."""
+    datasets = {}
+    with h5py.File(path, "r") as f:
+        f.visititems(lambda name, obj: datasets.update({name: obj[()]})
+                     if isinstance(obj, h5py.Dataset) else None)
+    with h5py.File(path, "w", libver="latest") as f:
+        for name, a in datasets.items():
+            if np.ndim(a) == 0:
+                f.create_dataset(name, data=a)
+                continue
+            f.create_dataset(name, data=a, chunks=(max(1, min(len(a), 500)),) + a.shape[1:],
+                             maxshape=(None,) + a.shape[1:], compression=compression)
+
+
+@pytest.mark.parametrize("compression", ["gzip", "lzf"])
+@pytest.mark.parametrize("mode", ["tumvie", "eds"])
+def test_loaders_match_jax_on_files_written_at_libver_latest(tumvie_dir, eds_dir, tmp_path, mode,
+                                                             compression):
+    """The fixtures' event streams (and tumvie's rectify map) rewritten by
+    h5py at libver='latest' with maxshape=(None,): superblock 3, version-2
+    headers, compact groups, layout 4 with an extensible-array index."""
+    src = tumvie_dir if mode == "tumvie" else eds_dir
+    d = str(tmp_path / os.path.basename(src))
+    shutil.copytree(src, d)
+    files = glob.glob(os.path.join(d, "*.h5"))
+    assert len(files) == (3 if mode == "tumvie" else 2)
+    for path in files:
+        _rewrite_latest(path, compression)
+    events = os.path.join(d, "events_left.h5" if mode == "tumvie" else "events.h5")
+    with hdf5.File(events) as f:
+        t_name = "events/t" if mode == "tumvie" else "t"
+        assert f[t_name]._kind == "earray" and open(events, "rb").read(9)[8] == 3
+    kw = dict(scale=0.33, out_dim_color=1, select_idxs=[1, 3, 4, 7, 10])
+    if mode == "tumvie":
+        got = ttumvie.load_tumvie_dataset(d, pp_poses_sphere=False, **kw)
+        ref = jtumvie.load_tumvie_dataset(d, pp_poses_sphere=False, **kw)
+    else:
+        got, ref = teds.load_eds_dataset(d, **kw), jeds.load_eds_dataset(d, **kw)
+    assert len(got["events"]) > 1000
+    _assert_data_equal(got, ref)
 
 
 # ------------------------------------------------------------ providers
