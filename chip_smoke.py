@@ -151,11 +151,14 @@ Phases (one line each; any failure exits non-zero before the result lines):
      fixtures' events below pixel 0, if any; then 10^8 events made on the
      card: E1's own checks (a permutation, keys non-decreasing, indices
      ascending within a group, the group ids) and at 10^7 and 10^8 E1's
-     ms and its split (pre-pass, histogram, scan, scatter, fix-up with the
-     group ids), torch.argsort(stable=True)'s ms, the bound in bytes, and
+     ms, its digit plan and its split (pre-pass with its host read, the
+     digits' histogram, each radix pass, the group pass, the group count's
+     host read; no stage over the key space), torch.argsort(stable=True)'s
+     ms, the bound in bytes, E1's group tables' ms beside the sort, and
      build_event_chains end to end on the card at both sizes (plain at
-     10^7); E1's launches on the main path (phase 4's provider) and in
-     phases 16 and 17;
+     10^7); the split on the 10^6 shuffled times (with the fix-up); E1's
+     launches on the main path (phase 4's provider) and in phases 16 and
+     17;
  16. configs/mocapDesk2/mocapDesk2_enerf.txt as published (tumvie, event
      only, 2 renders of 20,096 rays x 512 steps, the stereo event views)
      on the directory phase 15b prepared (its JPEG frames decoded by the
@@ -2739,6 +2742,10 @@ def e1_timing(n):
             totals.append(marks[0][1].elapsed_time(marks[-1][1]))
     stages = [k for k, _ in marks[1:]]
     key = (fids.long() * H + ys.long()) * W + xs.long()
+    pix = ys.long() * W + xs.long()
+    n_keys = int((fids.max() - fids.min() + 1) * (pix.max() - pix.min() + 1))
+    plan = ne.digit_plan(n_keys)
+    del pix
     ks = key[order]
     seen = torch.zeros(n, dtype=torch.bool, device="cuda")
     seen[order] = True
@@ -2749,8 +2756,18 @@ def e1_timing(n):
         ascending_in_group=bool((order[1:] > order[:-1])[same].all()),
         group_ids=bool(gid[0] == 0) and bool(((gid[1:] - gid[:-1]) == (~same).long()).all())
         and ng == int(gid[-1]) + 1)
-    del seen, ks, same, gid
+    del seen, ks, same
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    tables = []  # E1's group tables over the sorted group ids, beside the sort
+    for _ in range(4):
+        start.record()
+        ne.group_tables(gid, ng)
+        end.record()
+        end.synchronize()
+        tables.append(start.elapsed_time(end))
+    tables_ms = float(np.mean(tables[1:]))
+    tables_bound = (n * (8 + 8) + ng * (8 + 8)) / HBM_BYTES_PER_S * 1e3
+    del gid
     lib = []
     for _ in range(3):
         start.record()
@@ -2782,17 +2799,21 @@ def e1_timing(n):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[chains] E1 at {n} events (card-made, {E1_H}x{E1_W}, {E1_FRAMES} windows, "
-          f"{ng} groups): own checks {checks}; E1 {ms:.4f} ms ("
+          f"{ng} groups, K = {n_keys}: {sum(plan)} bits in {len(plan)} passes of {plan}): "
+          f"own checks {checks}; E1 {ms:.4f} ms ("
           + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
           + f"); torch.argsort(stable=True) of the int64 keys {np.mean(lib):.4f} ms "
           f"({'the same order' if lib_equal else 'ANOTHER order'}); bound {bound:.4f} ms "
           f"(bytes, {nbytes / 1e9:.3f} GB), E1 at {100 * bound / ms:.1f}% of it; "
+          f"E1's group tables {tables_ms:.4f} ms (bound {tables_bound:.4f} ms, bytes); "
           f"build_event_chains on the card {t_build:.3f} s ({chained} chained events)")
     if not (all(checks.values()) and lib_equal):
         raise AssertionError(f"E1 at {n} events failed its own checks: {checks}, argsort "
                              f"equal {lib_equal}")
     return dict(ms=ms, split=split, library_ms=float(np.mean(lib)), bound_ms=bound,
-                bound_by="bytes", build_s=t_build, groups=ng)
+                bound_by="bytes", build_s=t_build, groups=ng,
+                digit_plan=dict(keys=n_keys, bits=sum(plan), passes=len(plan), widths=plan),
+                group_tables_ms=tables_ms, group_tables_bound_ms=tables_bound)
 
 
 def phase_event_chains(esim_data, tumvie_dir, eds_dir):
@@ -2845,7 +2866,21 @@ def phase_event_chains(esim_data, tumvie_dir, eds_dir):
     del ev, fids, xs, ys, ts, fid, key
     ev, fids = synthetic_events(10 ** 6, 1, shuffled=True)
     errs.append(e1_compare("10^6 synthetic events, shuffled times", ev, fids, E1_FRAMES)[3])
-    del ev, fids
+    # E1's split where the times are unsorted: the fix-up after the group pass
+    cols = [torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+            for a in (ev[:, 0], ev[:, 1], ev[:, 2], fids)]
+    Wu, Hu = int(ev[:, 0].max()) + 2, int(ev[:, 1].max()) + 2
+    splits = []
+    for _ in range(4):
+        marks = []
+        ne.sort_events_by_pixel(*cols, Wu, Hu, marks=marks)
+        torch.cuda.synchronize()
+        splits.append({k: marks[i][1].elapsed_time(e) for i, (k, e) in enumerate(marks[1:])})
+    unsorted_split = {k: float(np.mean([sp[k] for sp in splits[1:]])) for k in splits[0]}
+    print("[chains] E1 at 10^6 shuffled times: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in unsorted_split.items())
+          + f" ms; {sum(unsorted_split.values()):.4f} ms in all")
+    del ev, fids, cols
     compared = e1_launches()
     t7, t8 = e1_timing(10 ** 7), e1_timing(10 ** 8)
     print(f"[chains] E1 launches in this phase: {compared} (sort, group tables) in the "
@@ -2857,7 +2892,8 @@ def phase_event_chains(esim_data, tumvie_dir, eds_dir):
     gc.collect()
     torch.cuda.empty_cache()
     return dict(max_abs_err=max(errs), ms=ms7, plain_ms=plain_ms, bound_ms=bound7,
-                bound_by="bytes", library_ms=lib7,
+                bound_by="bytes", library_ms=lib7, digit_plan=t7["digit_plan"],
+                unsorted_split_1e6=unsorted_split,
                 card_made_1e7=t7, card_made_1e8=t8, build_s_1e7=t_card7,
                 plain_build_s_1e7=t_plain7, build_s_1e8=t8["build_s"])
 

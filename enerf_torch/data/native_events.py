@@ -23,17 +23,25 @@ kernel E1 (csrc/event_chains.cu, built with nvcc at first use), and
 ms_to_idx / window_indices run torch.searchsorted on the card.  There is no
 fallback: a missing toolchain raises.
 
-E1 sorts by a counting sort over the composite key (frame - min frame) * P
-+ (pixel - min pixel), P the pixel range: a pre-pass of reductions (the
-key's range, whether the times are sorted; the host reads them once), a
-histogram whose atomics also rank each event within its key, a scan, a
-scatter by those ranks (not stable), then a fix-up that sorts each key's
-events back into (time, index) order and writes their group number, one
-thread a short group and one block a long one (a hot pixel).  Its result is the plain version's
+E1 is a stable least-significant-digit radix sort of the int32 composite
+key (frame - min frame) * P + (pixel - min pixel), P the pixel range,
+carrying int32 event indices, so that its cost grows with the number of
+events M and not with the key space K = frames x P: a pre-pass of
+reductions (the key's range, whether the times are sorted; the host reads
+them once and plans the digits with digit_plan), one histogram of every
+digit, then a pass a digit (each tile of 4096 keys ranked stably in
+shared memory, its buckets' offsets found by a decoupled look-back over the
+tiles before it, its keys and indices stored as runs), then one streaming
+pass over the sorted keys for the group ids and each group's count.  A
+sort that starts in index order ends in (key, index) order, which is
+lexsort's order when the times are sorted; when they are not, a fix-up
+sorts each group's events by (time, index), one thread a short group and
+one block a long one (a hot pixel).  Its result is the plain version's
 order exactly.  Keys are offset by their minimum, so a pixel below 0 (a
-rectify map can send border events there) is counted, not written out of
+rectify map can send border events there) is sorted, not written out of
 range; the JAX library's counting sort indexes out of its arrays there.
-E1 takes at most 2^30 keys (MAX_KEYS) and raises above that.
+E1 takes at most 2^30 keys (MAX_KEYS) and raises above that.  Bound: bytes
+(36 B an event read and written at least; the passes move ~100).
 
 `sort_events_by_pixel.launches` counts E1's sort launches (through
 either sort function) and `group_tables.launches` its group-table launches
@@ -46,7 +54,18 @@ import ctypes
 import numpy as np
 import torch
 
-MAX_KEYS = 1 << 30  # E1's counters: frames x pixel range, at most
+MAX_KEYS = 1 << 30  # E1's int32 keys: frames x pixel range, at most
+MAX_DIGIT = 11      # bits of a radix pass's digit: 2048 buckets, at most
+
+
+def digit_plan(K):
+    """The digits E1's radix passes take for keys in [0, K), least
+    significant first: b = ceil(log2 K) bits (0 for K = 1, which needs no
+    pass) in the fewest passes of at most MAX_DIGIT bits, split as evenly
+    as they go (25 bits: 9, 8, 8)."""
+    b = (int(K) - 1).bit_length()
+    d = -(-b // MAX_DIGIT)
+    return [b // d + (p < b % d) for p in range(d)]
 
 
 def sort_plain(xs, ys, ts, frame_ids, W):
@@ -82,17 +101,21 @@ def _lib():
     if lib.e1_prepass.argtypes is None:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.e1_prepass.argtypes = [vp, vp, vp, vp, i64, i32, vp, vp]
-        lib.e1_histogram.argtypes = [vp, vp, vp, i64, i32, i64, i64, i64, vp, vp, vp, vp]
-        lib.e1_scan.argtypes = [vp, i64, i32, vp, vp, vp]
-        lib.e1_scatter.argtypes = [vp, vp, i64, vp, vp, vp]
-        lib.e1_fixup.argtypes = [vp, vp, vp, vp, i64, vp, i32, vp, vp, vp, vp, vp]
-        lib.e1_group_tables.argtypes = [vp, i64, i64, vp, vp, vp, vp, vp, vp]
-        lib.e1_scan_workspace.argtypes = [i64]
-        lib.e1_scan_workspace.restype = i64
+        plan = [i32] * 4 + [vp]  # d, the digits' bits, the workspace
+        lib.e1_histogram.argtypes = [vp, vp, vp, i64, i32, i64, i64, i64] + plan + [vp]
+        lib.e1_pass.argtypes = ([vp, vp, vp, i64, i32, i64, i64, i64, vp, vp, i32] + plan
+                                + [vp] * 4)
+        lib.e1_groups.argtypes = [vp, i64] + plan + [vp] * 3
+        lib.e1_single_key.argtypes = [i64, vp, vp, vp, vp]
+        lib.e1_fixup.argtypes = [vp, vp, i64, vp, vp, vp, vp, vp, vp]
+        lib.e1_group_tables.argtypes = [vp, i64, i64, vp, vp, vp, vp, vp]
         lib.e1_big_capacity.argtypes = [i64]
-        lib.e1_big_capacity.restype = i64
-        for fn in (lib.e1_prepass, lib.e1_histogram, lib.e1_scan, lib.e1_scatter, lib.e1_fixup,
-                   lib.e1_group_tables):
+        lib.e1_sort_workspace.argtypes = [i64] + [i32] * 4
+        for fn in (lib.e1_big_capacity, lib.e1_sort_workspace):
+            fn.restype = i64
+        lib.e1_tile.argtypes = []
+        for fn in (lib.e1_prepass, lib.e1_histogram, lib.e1_pass, lib.e1_groups,
+                   lib.e1_single_key, lib.e1_fixup, lib.e1_group_tables, lib.e1_tile):
             fn.restype = ctypes.c_int
     return lib
 
@@ -102,8 +125,9 @@ def _check(err, what):
         raise RuntimeError(f"E1 {what} launch failed: cudaError {err}")
 
 
-def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr())
+def _ptr(x, word=0):
+    """x's address, `word` elements in."""
+    return ctypes.c_void_p(x.data_ptr() + word * x.element_size())
 
 
 def _sort_cuda(xs, ys, ts, frame_ids, W, marks=None):
@@ -112,8 +136,7 @@ def _sort_cuda(xs, ys, ts, frame_ids, W, marks=None):
     dev = xs.device
     n = xs.numel()
     if n >= 2 ** 31:
-        raise ValueError(f"E1 sorts fewer than 2^31 events (its per-key counters are "
-                         f"int32), got {n}")
+        raise ValueError(f"E1 sorts fewer than 2^31 events (its positions are int32), got {n}")
     lib = _lib()
 
     def mark(stage):
@@ -136,33 +159,48 @@ def _sort_cuda(xs, ys, ts, frame_ids, W, marks=None):
             raise ValueError(
                 f"E1 takes at most 2^30 keys (frames x pixel range): frames {fmin}..{fmax} "
                 f"and pixels {pmin}..{pmax} make {K}")
-        key = torch.empty(n, dtype=torch.int32, device=dev)
-        rank = torch.empty(n, dtype=torch.int32, device=dev)
-        count = torch.zeros(K, dtype=torch.int32, device=dev)
-        _check(lib.e1_histogram(_ptr(xs), _ptr(ys), _ptr(frame_ids), n, int(W), fmin, pmin, P,
-                                _ptr(key), _ptr(rank), _ptr(count), stream), "histogram")
-        mark("histogram")
-        start = torch.empty(K + 1, dtype=torch.int64, device=dev)
-        gbase = torch.empty(K + 1, dtype=torch.int64, device=dev)
-        ws = torch.empty(lib.e1_scan_workspace(K + 1), dtype=torch.int64, device=dev)
-        _check(lib.e1_scan(_ptr(count), K, 0, _ptr(start), _ptr(ws), stream), "scan")
-        _check(lib.e1_scan(_ptr(count), K, 1, _ptr(gbase), _ptr(ws), stream), "scan")
-        mark("scan")
+        plan = digit_plan(K)
         order = torch.empty(n, dtype=torch.int64, device=dev)
-        _check(lib.e1_scatter(_ptr(key), _ptr(rank), n, _ptr(start), _ptr(order), stream),
-               "scatter")
-        mark("scatter")
-        n_groups = int(gbase[K].item())  # sizes the counts
-        tmp = torch.empty(n, dtype=torch.int64, device=dev)
         group_id = torch.empty(n, dtype=torch.int64, device=dev)
-        counts = torch.empty(n_groups, dtype=torch.int64, device=dev)
-        big = torch.empty(lib.e1_big_capacity(n), dtype=torch.int32, device=dev)
-        n_big = torch.zeros(1, dtype=torch.int32, device=dev)
-        _check(lib.e1_fixup(_ptr(order), _ptr(tmp), _ptr(start), _ptr(gbase), K, _ptr(ts),
-                            int(unsorted), _ptr(group_id), _ptr(counts), _ptr(big),
-                            _ptr(n_big), stream), "fix-up")
-        mark("fixup")
-    return order, group_id, counts
+        if not plan:
+            counts = torch.empty(1, dtype=torch.int64, device=dev)
+            _check(lib.e1_single_key(n, _ptr(order), _ptr(group_id), _ptr(counts), stream),
+                   "single key")
+            mark("single key")
+            tmp = torch.empty(n, dtype=torch.int64, device=dev) if unsorted else None
+        else:
+            digits = (len(plan), *plan, *[0] * (3 - len(plan)))  # at most 3 of <= 11 bits
+            ws = torch.zeros(lib.e1_sort_workspace(n, *digits), dtype=torch.int64,
+                             device=dev)  # laid out by the .cu
+            digits += (_ptr(ws),)
+            _check(lib.e1_histogram(_ptr(xs), _ptr(ys), _ptr(frame_ids), n, int(W), fmin, pmin,
+                                    P, *digits, stream), "histogram")
+            mark("histogram")
+            # two sets of int32 keys then int32 values, each in one int64
+            # tensor of n: pass p writes set p % 2 and reads the other
+            sets = [torch.empty(n, dtype=torch.int64, device=dev) for _ in range(2)]
+            halves = [(_ptr(t), ctypes.c_void_p(t.data_ptr() + 4 * n)) for t in sets]
+            for p, w in enumerate(plan):
+                src, dst = halves[(p + 1) % 2], halves[p % 2]
+                _check(lib.e1_pass(_ptr(xs), _ptr(ys), _ptr(frame_ids), n, int(W), fmin, pmin,
+                                   P, *src, p, *digits, *dst, _ptr(order), stream),
+                       f"pass {p}")
+                mark(f"pass {p} ({w} bits)")
+            # the last pass read the other set (or none): it holds the counts now
+            counts = sets[len(plan) % 2]
+            _check(lib.e1_groups(halves[(len(plan) - 1) % 2][0], n, *digits, _ptr(group_id),
+                                 _ptr(counts), stream), "groups")
+            mark("groups")
+            tmp = sets[(len(plan) - 1) % 2]  # the sorted keys, read
+        if unsorted:
+            big = torch.empty(lib.e1_big_capacity(n), dtype=torch.int32, device=dev)
+            n_big = torch.zeros(1, dtype=torch.int32, device=dev)
+            _check(lib.e1_fixup(_ptr(order), _ptr(tmp), n, _ptr(group_id), _ptr(counts),
+                                _ptr(ts), _ptr(big), _ptr(n_big), stream), "fix-up")
+            mark("fixup")
+        n_groups = int(group_id[n - 1]) + 1  # the one read after the sort
+        mark("group count read")
+    return order, group_id, counts[:n_groups]
 
 
 def sort_and_count(xs, ys, ts, frame_ids, W, marks=None):
@@ -197,9 +235,13 @@ sort_events_by_pixel.launches = 0
 
 
 def group_tables(group_id, n_groups):
-    """group_id [M] int64 (in [0, n_groups)) -> (counts [G], offsets [G],
-    num_succ [M]) int64: E1's group tables on CUDA tensors, the plain
-    version on CPU tensors."""
+    """group_id [M] int64, non-decreasing in [0, n_groups) as the sort gives
+    it -> (counts [G], offsets [G], num_succ [M]) int64: E1's group tables
+    on CUDA tensors, the plain version on CPU tensors.  E1 takes each
+    group's offset where a run of its id starts, so on the card ids that
+    decrease or leave [0, n_groups) raise ValueError (one host read); the
+    plain version, like the JAX library's histogram, returns tables for any
+    ids in range."""
     if not group_id.is_cuda:
         return tuple(torch.from_numpy(a) for a in group_tables_plain(group_id.numpy(),
                                                                      n_groups))
@@ -208,15 +250,18 @@ def group_tables(group_id, n_groups):
     n = group_id.numel()
     lib = _lib()
     with torch.cuda.device(dev):
-        count = torch.zeros(max(n_groups, 1), dtype=torch.int32, device=dev)
         offs = torch.empty(n_groups + 1, dtype=torch.int64, device=dev)
         counts = torch.empty(n_groups, dtype=torch.int64, device=dev)
         num_succ = torch.empty(n, dtype=torch.int64, device=dev)
-        ws = torch.empty(lib.e1_scan_workspace(n_groups + 1), dtype=torch.int64, device=dev)
-        _check(lib.e1_group_tables(_ptr(group_id), n, n_groups, _ptr(count), _ptr(offs),
-                                   _ptr(counts), _ptr(num_succ), _ptr(ws),
-                                   torch.cuda.current_stream(dev).cuda_stream), "group tables")
+        bad = torch.zeros(1, dtype=torch.int32, device=dev)
+        _check(lib.e1_group_tables(_ptr(group_id), n, n_groups, _ptr(offs), _ptr(counts),
+                                   _ptr(num_succ), _ptr(bad),
+                                   torch.cuda.current_stream(dev).cuda_stream),
+               "group tables")
     group_tables.launches += 1
+    if int(bad):
+        raise ValueError(f"E1's group tables take ids non-decreasing in [0, {n_groups}), "
+                         "as the sort gives them")
     return counts, offs[:n_groups], num_succ
 
 

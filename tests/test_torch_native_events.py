@@ -248,3 +248,110 @@ def test_e1_ms_to_idx_and_windows_on_the_card():
                                   _np(tnat.ms_to_idx(torch.from_numpy(ts), 1000.0)))
     assert (tnat.window_indices(torch.from_numpy(ts).to(dev), 100.0, 3e4)
             == tnat.window_indices(torch.from_numpy(ts), 100.0, 3e4))
+
+
+def _e1_against_plain(ev, fids, W):
+    """E1's sort_and_count and group tables against the plain version's,
+    bit for bit."""
+    dev = _cuda()
+    got = tnat.sort_and_count(*_columns(ev, fids, dev), W)
+    ref = tnat.sort_and_count(*_columns(ev, fids, "cpu"), W)
+    for name, g, r in zip(("order", "group ids", "counts"), got, ref):
+        assert g.dtype == torch.int64, name
+        np.testing.assert_array_equal(_np(g), _np(r), err_msg=name)
+    for g, r in zip(tnat.group_tables(got[1], got[2].numel()),
+                    tnat.group_tables(ref[1], ref[2].numel())):
+        np.testing.assert_array_equal(_np(g), _np(r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side", [-1, 1])
+def test_e1_at_a_tile_multiple_less_or_more_one(side):
+    _cuda()
+    n = 3 * tnat._lib().e1_tile() + side
+    ev, fids, _ = make_events("frames", n=n, seed=7)
+    _e1_against_plain(ev, fids, int(ev[:, 0].max()) + 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", [[1], [9], [9, 8, 8], [10, 10, 10]])
+@pytest.mark.parametrize("side", [-1, 0, 1])
+def test_e1_sort_workspace_for_m_off_a_tile_multiple(plan, side):
+    """The workspace event_chains.cu lays out: each digit's counts and
+    starts (2^bits each), a tile counter for each pass and for the group
+    pass, a status word a tile a bucket for each pass and one a tile for
+    the group pass, with the tiles rounded up."""
+    _cuda()
+    lib = tnat._lib()
+    tile = lib.e1_tile()
+    n = 7 * tile + side
+    tiles = -(-n // tile)
+    assert (tiles - 1) * tile < n <= tiles * tile
+    words = sum(2 << w for w in plan) + len(plan) + 1 + sum(tiles << w for w in plan) + tiles
+    digits = (len(plan), *plan, *[0] * (3 - len(plan)))
+    assert lib.e1_sort_workspace(n, *digits) == words
+    assert lib.e1_sort_workspace(n, 0, 0, 0, 0) == -1  # no digit
+    assert lib.e1_sort_workspace(n, 1, 12, 0, 0) == -1  # a digit wider than 11 bits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ids", [[0, 1, 1, 0], [-1, 0, 1, 2], [0, 1, 2, 3]])
+def test_e1_group_tables_refuse_ids_not_sorted_in_range(ids):
+    """E1 takes offsets where runs of the ids start: ids that decrease, or
+    leave [0, n_groups) (here 3), raise instead of returning tables built
+    from unwritten offsets."""
+    dev = _cuda()
+    with pytest.raises(ValueError, match="non-decreasing"):
+        tnat.group_tables(torch.tensor(ids, dtype=torch.int64, device=dev), 3)
+    counts, offsets, num_succ = tnat.group_tables(
+        torch.tensor([0, 0, 2], dtype=torch.int64, device=dev), 3)  # a gap: a group of 0
+    for got, want in zip((counts, offsets, num_succ),
+                         tnat.group_tables_plain(np.array([0, 0, 2]), 3)):
+        np.testing.assert_array_equal(_np(got), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_e1_with_one_key_takes_no_pass(shuffled):
+    """Every event at one pixel in one frame: K = 1, no radix pass."""
+    rng = np.random.default_rng(8)
+    n = 5000
+    ts = rng.uniform(0, 1, n)
+    ts = ts if shuffled else np.sort(ts)
+    ev = np.stack([np.full(n, 9.5), np.full(n, 4.0), ts, np.ones(n)], 1)
+    assert tnat.digit_plan(1) == []
+    _e1_against_plain(ev, np.full(n, 2, np.int64), 16)
+
+
+@pytest.mark.gpu
+def test_e1_over_the_widest_key_range():
+    """Two frames x a pixel range of 2^29 (W = 2^15): K = 2^30, the most
+    E1 takes, in three passes of ten bits."""
+    rng = np.random.default_rng(9)
+    n, W = 50_000, 1 << 15
+    xs = rng.integers(0, W, n).astype(np.float64)
+    ys = rng.integers(0, 1 << 14, n).astype(np.float64)
+    xs[:2], ys[:2] = [0, W - 1], [0, (1 << 14) - 1]
+    hot = rng.random(n) < 0.05
+    xs[hot], ys[hot] = 123.0, 4567.0
+    ts = np.sort(rng.uniform(0, 1e6, n))
+    fids = (ts > 5e5).astype(np.int64)
+    fids[:2] = [0, 1]
+    assert (fids.max() - fids.min() + 1) * (1 << 29) == tnat.MAX_KEYS
+    assert tnat.digit_plan(tnat.MAX_KEYS) == [10, 10, 10]
+    _e1_against_plain(np.stack([xs, ys, ts, np.ones(n)], 1), fids, W)
+
+
+@pytest.mark.gpu
+def test_e1_with_unsorted_times_over_several_frames():
+    """Shuffled times in five frames: short groups sorted by a thread, two
+    hot pixels' groups (one per frame they span) by a block."""
+    rng = np.random.default_rng(10)
+    n = 60_000
+    xs = rng.integers(0, 200, n).astype(np.float64)
+    ys = rng.integers(0, 100, n).astype(np.float64)
+    hot = rng.random(n) < 0.2
+    xs[hot], ys[hot] = rng.choice([7.0, 150.0], int(hot.sum())), 33.0
+    ts = np.round(rng.uniform(0, 1e6, n) / 50) * 50  # equal times among the hot pixels
+    fids = rng.integers(0, 5, n)
+    _e1_against_plain(np.stack([xs, ys, ts, np.ones(n)], 1), fids, 202)
