@@ -64,7 +64,8 @@ Phases (one line each; any failure exits non-zero before the result lines):
      state and generator states the graphed window against the eager one
      (loss within 1e-4, params within 2e-2 of the update by norm), in
      turns; the kernel launches a replay adds to the counts (recorded in
-     the capture) against the kernels torch.profiler sees in one replay;
+     the capture) against the kernels torch.profiler sees in one replay,
+     the span marks' against the spans their ring records in that replay;
   7. K2 path: bench.py's march step at its reference shape (16 x 2, blk4,
      separate marches, 8192 rays x 32 samples, compact_frac 0.25, bf16,
      the ball bitfield) with fast_table_grad on (K2) and off (index_add_),
@@ -108,10 +109,10 @@ Phases (one line each; any failure exits non-zero before the result lines):
      window each (captured in the first, the graph kept and replayed in
      the second; one capture): steps/s of each epoch, peak memory, the
      checkpoint's and the evaluation's seconds (one 480 x 640 view), PSNR
-     and LPIPS; finite losses and PSNR; one more step split into its
-     parts; save_mesh(256, 10.0) (the per-step path's two epochs beside
-     the windows' were dropped to keep the smoke in its time: they
-     matched within 1.01x);
+     and LPIPS; finite losses and PSNR; one more graphed step split into
+     its phases by the span registry's device marks; save_mesh(256, 10.0)
+     (the per-step path's two epochs beside the windows' were dropped to
+     keep the smoke in its time: they matched within 1.01x);
  13. events + frames from the esim loader at the published width:
      configs/shakeCarpet1/shakeCarpet1_enerfBoth.txt (images_corrupted,
      the scene's pose offset), 8 steps: steps/s and peak memory; a
@@ -1341,9 +1342,12 @@ def phase_window(trainer, train):
     import torch
     from enerf_torch.render.march import march_rays
 
+    from enerf_torch.utils import profiling
+
     chunk = trainer._chunk(train, trainer.cfg.fuse_steps, trainer.state.step)
     K = chunk.chunk_len
     syncs = march_rays.host_syncs
+    profiling.snapshot()  # the span marks' ring read now: no drain inside the window
     torch.cuda.synchronize()
     t0 = time.time()
     torch.cuda.set_sync_debug_mode("error")
@@ -1396,15 +1400,19 @@ def phase_window(trainer, train):
           f"{[round(r['s'], 3) for r in runs['graph']]} s a window -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the graphed window disagrees with the eager one")
-    per_replay = {c.__name__: n for c, n in chunk.per_replay.items()}
-    seen = replay_profile(chunk)
-    agree = seen is None or seen == per_replay
+    per_replay = {c.__name__: n for c, n in chunk.per_replay.launches.items()}
+    seen, ring = replay_profile(chunk)
+    agree = seen is None or all(seen[k] == n for k, n in per_replay.items() if k != "span_mark")
+    marked = 2 * ring == per_replay["span_mark"]
     print(f"[window] kernel launches a replay adds to the counts (recorded in the capture) "
           f"{per_replay}; torch.profiler in one replay: "
-          f"{seen if seen is not None else 'no device kernel recorded: not measured'} -> "
-          f"{'ok' if agree else 'FAIL'}")
+          f"{seen if seen is not None else 'no device kernel recorded: not measured'}; the span "
+          f"marks' ring in that replay: {ring} spans, each a start and an end mark -> "
+          f"{'ok' if agree and marked else 'FAIL'}")
     if not agree:
         raise AssertionError("a replay's launch counts disagree with the profiled replay")
+    if not marked:
+        raise AssertionError("a replay's span marks disagree with the marks' ring")
     trainer._release_windows()
     return dict(eager_s=[r["s"] for r in runs["eager"]], graph_s=[r["s"] for r in runs["graph"]],
                 launches_per_replay=per_replay, profiled_replay=seen)
@@ -1415,16 +1423,25 @@ def phase_window(trainer, train):
 KERNEL_NAMES = {"fused_field_head": ("head_bf16_kernel", "head_f32_kernel"),
                 "block_table_grad": ("accumulate_kernel",),
                 "group_gather": ("group_gather_kernel",),
-                "march_rays": ("march_rays_kernel",)}
+                "march_rays": ("march_rays_kernel",),
+                "span_mark": ("span_mark_kernel",)}
 
 
 def replay_profile(chunk):
     """One replay of a window's captured step under torch.profiler ->
-    {counter: the kernels of that wrapper the profiler saw}, or None when
-    it recorded no device kernel at all."""
+    ({counter: the kernels of that wrapper the profiler saw}, or None when
+    it recorded no device kernel at all; the span instances whose start
+    and end marks the marks' ring recorded in the replay).  The marks are
+    held to the ring, not to the profiler: after the smoke's earlier
+    phases the profiler misses a replay's first few kernels, the step's
+    first two marks among them, which the ring records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from enerf_torch.utils import profiling
+
+    profiling.reset()
+    profiling.replayed(chunk.per_replay)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         chunk.graph.replay()
@@ -1436,7 +1453,9 @@ def replay_profile(chunk):
         any_kernel = True
         for name, kernels in KERNEL_NAMES.items():
             seen[name] += any(k in ev.name for k in kernels)
-    return seen if any_kernel else None
+    spans = profiling.snapshot()["spans"].values()
+    ring = sum(s["graphed"] for s in spans if s["device_s"] is not None)
+    return (seen if any_kernel else None), ring
 
 
 def phase_k2_path():
@@ -2204,65 +2223,34 @@ def phase_esim_frames(datadir, workspace):
                 peak_reserved_gib=trainer.peak_reserved_gib)
 
 
-def device_busy(fn):
-    """Host ms of one synchronized call of fn, and {kernel: device ms} of a
-    second call from torch.profiler (CUDA activity only)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.time()
-    fn()
-    torch.cuda.synchronize()
-    wall = (time.time() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0))
-        if dev_us > 0 and ev.key and not ev.key.startswith("ProfilerStep"):
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3
-    return wall, kernels
-
-
 def phase_frames_breakdown(trainer, train):
-    """Host-clock split of one more frames-mode step, each part ending in a
-    synchronize; then the device's busy share of a whole step."""
-    import torch
-    from enerf_torch.train.step import _render, draw_noise, train_step_frames
+    """One graphed frames-mode step split into its phases by the span
+    registry (utils/profiling.py): the device ms of each `step.*` span and
+    of the encode, from the marks the captured step records at each
+    replay; no synchronize inside the step."""
+    from enerf_torch.utils import profiling
 
-    ss, state = trainer.ss, trainer.state
-    parts = {}
+    chunk = trainer._chunk(train, trainer.cfg.fuse_steps, trainer.state.step)
+    args = (trainer.state, trainer.occupancy, train, trainer.generator, trainer.rank_generator)
+    chunk(*args, steps=1, update=False)  # the eager first step and the capture
+    profiling.reset()
+    chunk(*args, steps=1, update=False)  # one replay
+    spans = profiling.snapshot()["spans"]
+    trainer._release_windows()
 
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        parts[name] = (time.time() - t0) * 1e3
-        return out
+    def ms(path):
+        s = spans.get(path)
+        return 1e3 * s["device_s"] if s and s["graphed"] == 1 and s["device_s"] else None
 
-    batch = timed("batch", lambda: train.train_step_batch(trainer.generator))
-    N = batch["rays_o"].shape[0]
-    noise = draw_noise(ss, 0, trainer.generator, trainer.device, n_frames=N)
-    state.zero_grad()
-    out = timed("frame render (forward)", lambda: _render(
-        state.params, ss, batch["rays_o"], batch["rays_d"], noise["bg_frames"],
-        noise["jitter_frames"], None))
-    timed("loss + backward",
-          lambda: ((out["image"] - batch["images"]) ** 2).mean().backward())
-    timed("adam + ema", state.apply_updates)
-    print("[breakdown] frames mode at the published width, one step, ms (host clock, "
-          "synchronized): " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
-          + f"; {N * ss.num_steps} samples")
-    wall, kernels = device_busy(lambda: train_step_frames(
-        state, train.train_step_batch(trainer.generator), ss, None, generator=trainer.generator))
-    busy = sum(kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[breakdown] one whole step {wall:.1f} ms (host clock); the kernels of the next "
-          f"step {busy:.1f} ms on the device (torch.profiler), {busy / wall:.1%} of the host's "
-          f"step time; {len(kernels)} kernels, the longest: "
-          + "; ".join(f"{k[:70]} {v:.1f} ms" for k, v in top))
+    parts = {p: ms(p) for p in ("step", "step/step.batch", "step/step.forward",
+                                "step/step.forward/encode.fwd", "step/step.backward",
+                                "step/step.backward/encode.bwd", "step/step.optim")}
+    print("[breakdown] frames mode at the published width, one graphed step, device ms "
+          "(span marks): " + ", ".join(f"{p.rsplit('/', 1)[-1]} {v:.2f}" for p, v in parts.items()
+                                        if v is not None)
+          + f"; {train.num_rays * trainer.ss.num_steps} samples")
+    if any(v is None for v in parts.values()):
+        raise AssertionError(f"a span of the replayed step has no device time: {spans}")
 
 
 def phase_esim_events(datadir, workspace):

@@ -27,7 +27,6 @@ transfer and no sync.
 import glob
 import json
 import os
-import time
 
 import numpy as np
 import torch
@@ -42,6 +41,7 @@ from enerf_torch.data.poses import (
 )
 from enerf_torch.data.rays import get_event_rays, get_rays_full, get_rays_sampled
 from enerf_torch.parallel import multihost
+from enerf_torch.utils import profiling
 from enerf_torch.utils.jpeg import read_jpeg, write_jpeg
 from enerf_torch.utils.png import read_png, resize_area, write_png
 
@@ -505,13 +505,14 @@ class EventProvider:
                  noev_chunk_frac=0.05, frames=None, frame_poses=None, num_rays=4096,
                  event_frame_ids=None, n_frames=1, intrinsics_evs=None, device="cpu"):
         self.device = torch.device(device)
-        # seconds of each part of the load: the chains, the pose precompute
-        # (both end in a copy to the host or from it, so the clock is the device's too)
+        # seconds of each part of the load, the host seconds of the spans
+        # provider.chains and provider.poses (both end in a copy to the host
+        # or from it, so the clock is the device's too)
         self.load_seconds = {}
-        t0 = time.time()
-        self.chains, ev_ts_sorted = build_event_chains(events, event_frame_ids, n_frames,
-                                                       device=self.device)
-        self.load_seconds["chains"] = time.time() - t0
+        with profiling.span("provider.chains", self.device) as sp:
+            self.chains, ev_ts_sorted = build_event_chains(events, event_frame_ids, n_frames,
+                                                           device=self.device)
+        self.load_seconds["chains"] = sp.host_s
         self.n_frames = n_frames if event_frame_ids is not None else 1
         # keyframe poses as (quat, trans) for the device interpolation
         hf_poses = np.asarray(hf_poses, np.float64)
@@ -522,12 +523,12 @@ class EventProvider:
         self.key_trans = torch.as_tensor(hf_poses[:, :3, 3], dtype=torch.float32,
                                          device=self.device)
         self.poses_evs = None
-        t0 = time.time()
-        if precompute_evs_poses:
-            # exact host Slerp + cubic per event (48 bytes/event on the device)
-            interp = make_pose_interpolator(hf_ts, hf_poses)
-            self.poses_evs = torch.as_tensor(interp(ev_ts_sorted), device=self.device)
-        self.load_seconds["poses"] = time.time() - t0
+        with profiling.span("provider.poses", self.device) as sp:
+            if precompute_evs_poses:
+                # exact host Slerp + cubic per event (48 bytes/event on the device)
+                interp = make_pose_interpolator(hf_ts, hf_poses)
+                self.poses_evs = torch.as_tensor(interp(ev_ts_sorted), device=self.device)
+        self.load_seconds["poses"] = sp.host_s
         self.noev_coords = None
         if negative_event_sampling and len(events):
             arrs = noev_arrays(events, H, W, noev_chunk_frac)

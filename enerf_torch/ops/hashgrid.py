@@ -27,6 +27,8 @@ sum over corners of dw/dfrac_d * <g, table row>, zero outside the box.
 import numpy as np
 import torch
 
+from enerf_torch.utils import profiling
+
 # Hash primes, reference gridencoder.cu:41 (instant-ngp constants)
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
@@ -221,24 +223,29 @@ def position_grad_from_address(x01, idx, oob, table, g, meta):
 
 
 class _HashEncode(torch.autograd.Function):
+    """The encode and its VJP, as the spans `encode.fwd` and `encode.bwd`
+    (utils/profiling.py)."""
+
     @staticmethod
     def forward(ctx, x01, table, meta, out):
-        idx, w, oob = hash_address(x01, meta)
-        dx = ctx.needs_input_grad[0]
-        ctx.save_for_backward(idx, w, oob, x01 if dx else None, table if dx else None)
-        ctx.meta, ctx.table_shape, ctx.table_dtype = meta, table.shape, table.dtype
-        if out is not None:  # replay of a kept encoding (remat_fixed=2)
-            return out.clone()
-        return encode_from_address(idx, w, oob, table)
+        with profiling.span("encode.fwd", x01.device):
+            idx, w, oob = hash_address(x01, meta)
+            dx = ctx.needs_input_grad[0]
+            ctx.save_for_backward(idx, w, oob, x01 if dx else None, table if dx else None)
+            ctx.meta, ctx.table_shape, ctx.table_dtype = meta, table.shape, table.dtype
+            if out is not None:  # replay of a kept encoding (remat_fixed=2)
+                return out.clone()
+            return encode_from_address(idx, w, oob, table)
 
     @staticmethod
     def backward(ctx, g):
-        idx, w, oob, x01, table = ctx.saved_tensors
-        grad = table_grad_from_address(idx, w, oob, g, ctx.table_shape)
-        dx = None
-        if ctx.needs_input_grad[0]:
-            dx = position_grad_from_address(x01, idx, oob, table, g, ctx.meta)
-        return dx, grad.to(ctx.table_dtype), None, None
+        with profiling.span("encode.bwd", g.device):
+            idx, w, oob, x01, table = ctx.saved_tensors
+            grad = table_grad_from_address(idx, w, oob, g, ctx.table_shape)
+            dx = None
+            if ctx.needs_input_grad[0]:
+                dx = position_grad_from_address(x01, idx, oob, table, g, ctx.meta)
+            return dx, grad.to(ctx.table_dtype), None, None
 
 
 def hash_encode(x01, table, meta, out=None):

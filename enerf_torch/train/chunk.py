@@ -31,8 +31,16 @@ new numbers, the numbers an eager step would draw.  The march (kernel M1)
 and the batch sampling sync with the host nowhere, which a capture needs.
 A window whose inputs moved (a resumed checkpoint, `mark_untrained_grid`)
 is captured again.  The launches of the port's kernels recorded in the
-captured step are added to their counts once per replay (`per_replay`;
-chip_smoke.py holds them to the kernels a profiler sees in one replay).
+captured step, and the span registry's counters, are added to their
+counts once per replay (`per_replay`, utils/profiling.py `recording`;
+chip_smoke.py holds the launches to the kernels a profiler sees in one
+replay).
+
+Spans (utils/profiling.py): `step` around each step, with `step.batch`
+(the batch, its error-map cells and the noise draw) and, in train/step.py,
+`step.forward`, `step.backward` and `step.optim`; `window.warmup` around a
+capture's eager first step, so that its spans lie apart from the captured
+step's.  A replay records the captured step's spans on the card.
 
 On the CPU the same step function runs eagerly K times, and under a
 data-parallel mesh as well (`mesh`; parallel/mesh.py `make_window_step`):
@@ -55,7 +63,8 @@ import torch
 
 from enerf_torch.parallel import mesh as dp
 from enerf_torch.render.occupancy import update_occupancy, update_occupancy_sharded
-from enerf_torch.train.step import train_step_events, train_step_frames
+from enerf_torch.train.step import step_noise, train_step_events, train_step_frames
+from enerf_torch.utils import profiling
 
 
 @contextlib.contextmanager
@@ -98,7 +107,7 @@ class TrainChunk:
                  density_scale=1.0, density_thresh=0.01, error_map=False, mesh=None):
         if mode not in ("events", "frames"):
             raise ValueError(f"mode {mode!r}")
-        self.ss, self.chunk_len = ss, int(chunk_len)
+        self.ss, self.mode, self.chunk_len = ss, mode, int(chunk_len)
         self.use_occ, self.freeze_occ = use_occ, freeze_occ
         self.occ_kw = dict(density_scale=density_scale, density_thresh=density_thresh)
         self.error_map, self.mesh = error_map, mesh
@@ -107,36 +116,42 @@ class TrainChunk:
         self.acc = {}  # the window's sums of the steps' scalars
         self.graph = None
         self._inputs = None  # what the graph was captured on
-        self.per_replay = {}  # counter -> launches in one replay
+        self.per_replay = profiling.Replay()  # what one replay adds to the counts
         self.captures = 0
 
     def release(self):
         """Drop the captured graph (and its memory pool)."""
-        self.graph, self._inputs, self.per_replay = None, None, {}
+        self.graph, self._inputs, self.per_replay = None, None, profiling.Replay()
 
     # ------------------------------------------------------------ one step
 
     def _step(self, state, occ_bits, provider, generator, rank_generator, drawn=None,
               noise=None):
         """One step of the window; its scalars are added to self.acc."""
-        if drawn is None:
-            batch = provider.train_step_batch(rank_generator)
-            cells = provider.error_map_cells() if self.error_map else None
-        else:
-            batch, cells = drawn
-        if self.mesh is None:
-            aux = self.step_fn(state, batch, self.ss, occ_bits, noise=noise, generator=generator)
-        else:
-            aux = self.window_step(state, batch, occ_bits, rank_generator, noise=noise)
-        if self.error_map:
-            provider.update_error_map(aux["per_ray_loss"], cells)
-        for k, v in aux.items():
-            # implC_* medians are per rank under a mesh: JAX leaves them out
-            if v.ndim or (self.mesh is not None and k.startswith("implC_")):
-                continue
-            if k not in self.acc:
-                self.acc[k] = torch.zeros((), device=v.device)
-            self.acc[k].add_(v.detach().float())
+        dev = state.count.device
+        with profiling.span("step", dev):
+            with profiling.span("step.batch", dev):
+                if drawn is None:
+                    batch = provider.train_step_batch(rank_generator)
+                    cells = provider.error_map_cells() if self.error_map else None
+                else:
+                    batch, cells = drawn
+                if noise is None and self.mesh is None:
+                    noise = step_noise(self.ss, batch, generator, self.mode)
+            if self.mesh is None:
+                aux = self.step_fn(state, batch, self.ss, occ_bits, noise=noise,
+                                   generator=generator)
+            else:
+                aux = self.window_step(state, batch, occ_bits, rank_generator, noise=noise)
+            if self.error_map:
+                provider.update_error_map(aux["per_ray_loss"], cells)
+            for k, v in aux.items():
+                # implC_* medians are per rank under a mesh: JAX leaves them out
+                if v.ndim or (self.mesh is not None and k.startswith("implC_")):
+                    continue
+                if k not in self.acc:
+                    self.acc[k] = torch.zeros((), device=v.device)
+                self.acc[k].add_(v.detach().float())
 
     # ----------------------------------------------------------- a window
 
@@ -222,7 +237,7 @@ class TrainChunk:
             # warm-up: the window's first step, eagerly on a side stream
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), profiling.span("window.warmup", state.count.device):
                 self._step(state, occ_bits, provider, generator, rank_generator)
             torch.cuda.current_stream().wait_stream(side)
             replays -= 1
@@ -230,22 +245,18 @@ class TrainChunk:
             # private pool cannot use them
             gc.collect()
             torch.cuda.empty_cache()
-            counters = kernel_counters()
-            before = [c.launches for c in counters]
             graph = torch.cuda.CUDAGraph()
             for g in {generator, rank_generator}:
                 graph.register_generator_state(g)
-            with _expandable_segments(), torch.cuda.graph(graph):
+            with profiling.recording(kernel_counters()) as per_replay, \
+                    _expandable_segments(), torch.cuda.graph(graph):
                 self._step(state, occ_bits, provider, generator, rank_generator)
-            self.per_replay = {c: c.launches - b for c, b in zip(counters, before)}
-            for c, b in zip(counters, before):  # nothing was launched yet
-                c.launches = b
+            self.per_replay = per_replay
             self.graph, self._inputs = graph, key
             self.captures += 1
         for _ in range(replays):
+            profiling.replayed(self.per_replay)
             self.graph.replay()
-            for c, n in self.per_replay.items():
-                c.launches += n
 
 
 def make_train_chunk(ss, mode, chunk_len=16, use_occ=True, freeze_occ=False,

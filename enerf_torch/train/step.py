@@ -20,6 +20,10 @@ rematerialized in the backward (`remat_fixed`: 1 recomputes the whole
 render, 2 keeps the encodings and recomputes the rest).  `warm_statics`
 gives the march_warmup phase's statics.
 
+The event and frames steps record the spans `step.forward` (the renders
+and the loss), `step.backward` and `step.optim` (Adam + EMA) in the span
+registry (utils/profiling.py).
+
 Random draws (the backgrounds, the jitter and PDF draws of each render)
 come from a torch.Generator, or from `noise` when a test hands in the JAX
 package's draws.
@@ -37,6 +41,7 @@ from enerf_torch.render.march import (
 )
 from enerf_torch.render.renderer import render_rays
 from enerf_torch.train import losses
+from enerf_torch.utils import profiling
 
 
 class StepStatics(NamedTuple):
@@ -300,9 +305,12 @@ def train_step_events(state, batch, ss, occ, noise=None, generator=None):
     if noise is None:
         noise = step_noise(ss, batch, generator)
     state.zero_grad()
-    loss, aux = event_loss_fn(state.params, ss, batch, noise, occ)
-    loss.backward()
-    state.apply_updates()
+    with profiling.span("step.forward", state.count.device):
+        loss, aux = event_loss_fn(state.params, ss, batch, noise, occ)
+    with profiling.span("step.backward", state.count.device):
+        loss.backward()
+    with profiling.span("step.optim", state.count.device):
+        state.apply_updates()
     out = {"loss": loss.detach()}
     out.update((k, v.detach()) for k, v in aux.items())
     return out
@@ -315,9 +323,12 @@ def train_step_frames(state, batch, ss, occ, noise=None, generator=None):
     if noise is None:
         noise = step_noise(ss, batch, generator, mode="frames")
     state.zero_grad()
-    loss, aux = frames_loss_fn(state.params, ss, batch, noise, occ)
-    loss.backward()
-    state.apply_updates()
+    with profiling.span("step.forward", state.count.device):
+        loss, aux = frames_loss_fn(state.params, ss, batch, noise, occ)
+    with profiling.span("step.backward", state.count.device):
+        loss.backward()
+    with profiling.span("step.optim", state.count.device):
+        state.apply_updates()
     return {"loss": loss.detach(), "loss_frames": aux["loss_frames"].detach(),
             "per_ray_loss": aux["per_ray_loss"].detach()}
 

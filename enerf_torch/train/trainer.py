@@ -17,7 +17,9 @@ Counterpart of enerf_tpu/train/trainer.py (reference nerf/utils.py:289-1416):
     clip_text, train/clip_guidance.py); the fixed-step renderer for the
     first march_warmup steps; then
     the `[train]` log line, the no-event epoch gate and the `--profile N`
-    trace of steps N+1..2N (utils/profiling.py, <workspace>/profile/);
+    trace of steps N+1..2N (utils/profiling.py, <workspace>/profile/:
+    the Chrome trace, the span registry's snapshot of those steps, and a
+    `[profile]` line of ms a step by phase);
   - the per-epoch tail: epoch loss stats, a rotating checkpoint every
     ckpt_interval epochs, evaluation every eval_interval epochs, the
     best-by-metric checkpoint with the EMA weights, the eval_log JSON line
@@ -53,6 +55,7 @@ and at the end.  Images are written as PNG by the
 port's own writer (no OpenCV).  Not ported: tensorboard.
 """
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -189,10 +192,10 @@ class Trainer:
         self.stats = {"loss": [], "psnr": []}
         self.history = []     # (step, {loss term: float}) of every logged step
         self.last_eval = {}   # the results of the last evaluate() in train()
-        self.epoch_seconds = {}  # the last epoch's steps and tail, synchronized
+        self.epoch_seconds = {}  # the last epoch's steps and tail (spans epoch.*), synchronized
         self.seconds_by_epoch = {}  # epoch -> its epoch_seconds
         self.lpips_seconds = None  # the last evaluation's LPIPS seconds per view
-        self.mesh_seconds = {}  # the last save_mesh's query, extraction and write
+        self.mesh_seconds = {}  # the last save_mesh's query, extraction and write (mesh.*)
         self.diagnostics = []  # what dump_run_diagnostics wrote at the start of train,
         self.diagnostics_seconds = None  # and its seconds
         self.mesh_size = None  # (vertices, triangles) of the last save_mesh
@@ -270,20 +273,23 @@ class Trainer:
             k = cfg.profile
             if prof["session"] is None and step >= k and not end:
                 self._clock()
+                profiling.reset()  # the span totals of the traced steps alone
                 prof["session"] = profiling.start_trace(self.device.type == "cuda")
-                prof["until"] = step + k
+                prof["until"], prof["from"] = step + k, step
             elif prof["session"] is not None and (step >= prof["until"] or end):
                 self._clock()
                 self.profile_path = profiling.stop_trace(prof["session"], prof_dir)
                 prof["done"] = True
                 self.log(f"[profile] trace of steps {prof['until'] - k + 1}-{step} -> "
                          f"{self.profile_path}")
+                ms, clock = profiling.per_step_ms(profiling.snapshot(), step - prof["from"])
+                self.log(f"[profile] {clock} ms a step: "
+                         + ", ".join(f"{name} {v:.3f}" for name, v in ms.items())
+                         + " (spans_*.json beside the trace)")
 
         def timed(name, fn, *args):
-            t0 = self._clock()
-            out = fn(*args)
-            self.epoch_seconds[name] = self._clock() - t0
-            return out
+            with self._timed(self.epoch_seconds, name, f"epoch.{name}"):
+                return fn(*args)
 
         # the training window (train/chunk.py, JAX's fuse_steps path): K
         # steps with the occupancy update first, replayed as a CUDA graph on
@@ -297,43 +303,42 @@ class Trainer:
                 # no-event loss epoch gate (reference utils.py:548)
                 provider.use_no_ev = epoch > cfg.epoch_start_noEvLoss
             epoch_losses, self.epoch_seconds = [], {}
-            t_steps = self._clock()
-            it = 0
-            if use_chunk:
-                while it + chunk_len <= steps_per_epoch:
-                    chunk = self._chunk(provider, chunk_len, global_step)
-                    self.occupancy, aux = chunk(
-                        self.state, self.occupancy, provider, self.generator,
-                        self.rank_generator)
-                    prev = global_step
-                    it += chunk_len
-                    global_step += chunk_len
+            with self._timed(self.epoch_seconds, "steps", "epoch.steps"):
+                it = 0
+                if use_chunk:
+                    while it + chunk_len <= steps_per_epoch:
+                        chunk = self._chunk(provider, chunk_len, global_step)
+                        self.occupancy, aux = chunk(
+                            self.state, self.occupancy, provider, self.generator,
+                            self.rank_generator)
+                        prev = global_step
+                        it += chunk_len
+                        global_step += chunk_len
+                        maybe_profile(global_step)
+                        if global_step // cfg.log_every != prev // cfg.log_every:
+                            epoch_losses.append(log_aux(aux, global_step))
+                    if self.mesh is not None and it < steps_per_epoch:
+                        # the window's global batch is world size x the per-step
+                        # path's: no mixing within an epoch (JAX's trainer)
+                        if not self._chunk_round_logged:
+                            self._chunk_round_logged = True
+                            self.log(f"[train] mesh chunking: {steps_per_epoch} steps/epoch "
+                                     f"rounded down to {it} (whole {chunk_len}-step windows)")
+                        it = steps_per_epoch
+                windowed = it > 0
+                for _ in range(it, steps_per_epoch):
+                    if windowed:
+                        # the per-step path's cadence through the window's
+                        # step: on a card, one replay of its captured graph
+                        self.occupancy, aux = self._chunk(provider, chunk_len, global_step)(
+                            self.state, self.occupancy, provider, self.generator,
+                            self.rank_generator, steps=1, update=global_step % 16 == 0)
+                    else:
+                        aux = self.train_step(provider)
+                    global_step += 1
                     maybe_profile(global_step)
-                    if global_step // cfg.log_every != prev // cfg.log_every:
+                    if global_step % cfg.log_every == 0:
                         epoch_losses.append(log_aux(aux, global_step))
-                if self.mesh is not None and it < steps_per_epoch:
-                    # the window's global batch is world size x the per-step
-                    # path's: no mixing within an epoch (JAX's trainer)
-                    if not self._chunk_round_logged:
-                        self._chunk_round_logged = True
-                        self.log(f"[train] mesh chunking: {steps_per_epoch} steps/epoch "
-                                 f"rounded down to {it} (whole {chunk_len}-step windows)")
-                    it = steps_per_epoch
-            windowed = it > 0
-            for _ in range(it, steps_per_epoch):
-                if windowed:
-                    # the per-step path's cadence through the window's
-                    # step: on a card, one replay of its captured graph
-                    self.occupancy, aux = self._chunk(provider, chunk_len, global_step)(
-                        self.state, self.occupancy, provider, self.generator,
-                        self.rank_generator, steps=1, update=global_step % 16 == 0)
-                else:
-                    aux = self.train_step(provider)
-                global_step += 1
-                maybe_profile(global_step)
-                if global_step % cfg.log_every == 0:
-                    epoch_losses.append(log_aux(aux, global_step))
-            self.epoch_seconds["steps"] = self._clock() - t_steps
             if self.mesh is not None:
                 timed("replication check", dp.assert_replicated, self.state, self.occupancy,
                       self.mesh)
@@ -465,6 +470,16 @@ class Trainer:
             torch.cuda.synchronize(self.device)
         return time.time()
 
+    @contextlib.contextmanager
+    def _timed(self, seconds, key, name):
+        """The block as the span `name`, the device synchronized at its start
+        and end; its host seconds go to seconds[key]."""
+        self._clock()
+        with profiling.span(name, self.device) as sp:
+            yield
+            self._clock()
+        seconds[key] = sp.host_s
+
     def _eval_log(self, results, global_step):
         """Append the eval record to cfg.eval_log (if set) and run the
         divergence guard: True after guard_patience consecutive evals at
@@ -500,12 +515,21 @@ class Trainer:
         alive-ray inference renderer on the march path, else the fixed-step
         renderer without jitter.  Under a mesh every rank renders its share
         of the rays (the march path through make_sharded_render, as the JAX
-        trainer does) and every rank gets the whole image."""
+        trainer does) and every rank gets the whole image.  The view is the
+        span `render.view`; the counter `render.rays` counts its rays."""
+        with profiling.span("render.view", self.device):
+            pose = torch.as_tensor(np.asarray(pose), dtype=torch.float32, device=self.device)
+            ro, rd = get_rays_full(pose, intrinsics, H, W)
+            out = self._render_rays(ro, rd)
+            img = out["image"].reshape(H, W, self.static.out_dim_color).cpu().numpy()
+            depth = out["depth"].reshape(H, W).cpu().numpy()
+        profiling.count("render.rays", H * W)
+        return img, depth
+
+    def _render_rays(self, ro, rd):
+        """render_view's {image, depth} of the rays (ro, rd), on the device."""
         params = self.state.ema_params
-        pose = torch.as_tensor(np.asarray(pose), dtype=torch.float32, device=self.device)
-        ro, rd = get_rays_full(pose, intrinsics, H, W)
-        C = self.static.out_dim_color
-        cfg, out = self.cfg, None
+        cfg = self.cfg
         if self.occupancy is None:
             def render(o, d):
                 return render_rays_staged(
@@ -514,19 +538,16 @@ class Trainer:
                     perturb=False, train=False, min_near=cfg.min_near,
                     density_scale=cfg.density_scale)
 
-            out = render(ro, rd) if self.mesh is None else dp.shard_rays(render, self.mesh, ro, rd)
-        elif self.mesh is not None:
+            return render(ro, rd) if self.mesh is None else dp.shard_rays(render, self.mesh, ro, rd)
+        if self.mesh is not None:
             # the JAX trainer's eval depth: a live-sample buffer of twice the
             # training one, at least 128
-            out = dp.make_sharded_render(
+            return dp.make_sharded_render(
                 self.static, self.mesh, num_samples=max(2 * cfg.march_samples, 128),
                 max_steps=self.ss.max_steps, min_near=cfg.min_near,
                 density_scale=cfg.density_scale, dt_gamma=cfg.dt_gamma,
             )(params, self.occupancy.occ_packed, ro, rd)
-        if out is not None:
-            return (out["image"].reshape(H, W, C).cpu().numpy(),
-                    out["depth"].reshape(H, W).cpu().numpy())
-        chunk = min(int(self.cfg.max_ray_batch), ro.shape[0])
+        chunk = min(int(cfg.max_ray_batch), ro.shape[0])
         images, depths = [], []
         for s in range(0, ro.shape[0], chunk):
             co, cd = ro[s:s + chunk], rd[s:s + chunk]
@@ -537,13 +558,12 @@ class Trainer:
             o = render_rays_infer(
                 params, self.static, self.occupancy.occ_packed, co, cd,
                 block=16, max_steps=self.ss.max_steps, bg_color=1.0,
-                min_near=self.cfg.min_near, density_scale=self.cfg.density_scale,
-                dt_gamma=self.cfg.dt_gamma)
+                min_near=cfg.min_near, density_scale=cfg.density_scale,
+                dt_gamma=cfg.dt_gamma)
             n = chunk - pad
             images.append(o["image"][:n])
             depths.append(o["depth"][:n])
-        img = torch.cat(images).reshape(H, W, C).cpu().numpy()
-        return img, torch.cat(depths).reshape(H, W).cpu().numpy()
+        return {"image": torch.cat(images), "depth": torch.cat(depths)}
 
     def _log_intensity(self, img):
         """An image in [0, 1] -> log(255 * luma + 1e-3), as the reference's
@@ -662,8 +682,9 @@ class Trainer:
         utils.py:712-732): field_density on a resolution^3 grid over the
         bound's box, marching tetrahedra on the trainer's device, written
         to meshes/{expname}_ep{epoch:04d}.obj (.ply by suffix).  The
-        query, extraction and write seconds go to self.mesh_seconds.  Under
-        a mesh rank 0 alone exports it; the others return None."""
+        query, extraction and write seconds (spans mesh.*) go to
+        self.mesh_seconds.  Under a mesh rank 0 alone exports it; the
+        others return None."""
         if not self.primary:
             return None
         path = path or os.path.join(self.workspace, "meshes",
@@ -675,14 +696,14 @@ class Trainer:
         def query(pts):
             return field_density(params, self.static, pts)[0]
 
-        t0 = self._clock()
-        u = extract_fields(bmin, bmax, resolution, query, device=self.device)
-        t1 = self._clock()
-        verts, tris = marching_tets(u, threshold)
-        verts = to_world(verts, bmin, bmax, resolution)
-        t2 = self._clock()
-        (write_ply if path.endswith(".ply") else write_obj)(path, verts, tris)
-        self.mesh_seconds = {"query": t1 - t0, "extract": t2 - t1, "write": time.time() - t2}
+        secs = self.mesh_seconds = {}
+        with self._timed(secs, "query", "mesh.query"):
+            u = extract_fields(bmin, bmax, resolution, query, device=self.device)
+        with self._timed(secs, "extract", "mesh.extract"):
+            verts, tris = marching_tets(u, threshold)
+            verts = to_world(verts, bmin, bmax, resolution)
+        with self._timed(secs, "write", "mesh.write"):
+            (write_ply if path.endswith(".ply") else write_obj)(path, verts, tris)
         self.mesh_size = (len(verts), len(tris))
         self.log(f"[mesh] {len(verts)} verts / {len(tris)} tris -> {path} ("
                  + ", ".join(f"{k} {v:.2f} s" for k, v in self.mesh_seconds.items()) + ")")

@@ -186,7 +186,10 @@ def test_cli_trains_then_writes_mesh_lpips_and_a_profile(tmp_path, small_meshes)
     assert len(vals) == 2 and np.isfinite(vals).all() and min(vals) > 0
     assert small_meshes == [(256, 10.0)]
     assert os.path.exists(os.path.join(ws, "meshes", "cli_ep0001.obj"))
-    assert len(os.listdir(os.path.join(ws, "profile"))) == 1
+    # one trace and, beside it, the span registry's snapshot of the same steps
+    files = sorted(os.listdir(os.path.join(ws, "profile")))
+    assert len(files) == 2 and files[0].startswith("spans_") and files[1].startswith("trace_")
+    assert files[0][len("spans_"):] == files[1][len("trace_"):]
     assert "[profile] trace of steps 17-32" in log
     assert os.path.exists(os.path.join(ws, "diagnostics"))
     assert os.path.exists(os.path.join(ws, "results", "0000.png"))

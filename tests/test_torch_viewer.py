@@ -6,7 +6,6 @@ an ephemeral port, the turntable, the render tool and a trace."""
 
 import glob
 import json
-import math
 import os
 import threading
 import urllib.request
@@ -172,8 +171,11 @@ def test_profile_writes_a_trace(tmp_path):
     train, _ = make_providers(cfg, device="cpu")
     train.steps_per_epoch = 3
     trainer.train(train, None, max_epoch=1)
-    traces = glob.glob(os.path.join(trainer.workspace, "profile", "*.json"))
+    traces = glob.glob(os.path.join(trainer.workspace, "profile", "trace_*.json"))
     assert traces == [trainer.profile_path]
+    # the span registry's snapshot of the traced step beside it
+    head, name = os.path.split(trainer.profile_path)
+    assert os.path.exists(os.path.join(head, name.replace("trace_", "spans_", 1)))
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
@@ -185,15 +187,3 @@ def test_profile_writes_a_trace(tmp_path):
     train2.steps_per_epoch = 2
     t2.train(train2, None, max_epoch=1)
     assert t2.profile_path is None and not os.path.exists(os.path.join(t2.workspace, "profile"))
-
-
-def test_step_timer_and_trace_context(tmp_path):
-    from enerf_torch.utils import profiling
-    timer = profiling.StepTimer("cpu")
-    for _ in range(3):
-        with timer.measure():
-            torch.ones(64).sum()
-    assert len(timer.times) == 3 and timer.mean_ms() >= 0
-    with profiling.trace(str(tmp_path / "tr"), cuda=False) as out:
-        torch.ones(64).cumsum(0)
-    assert os.path.exists(out["path"]) and math.isfinite(os.path.getsize(out["path"]))
