@@ -5,11 +5,12 @@
 
 Phases (one line each; any failure exits non-zero before the result lines):
   1. device: the card's name and power limit (nvidia-smi), CUDA required;
-  2. build: every csrc/*.cu kernel (K1-K3, M1), one nvcc each, started together, with
-     the -Xptxas -v register / shared-memory / spill lines, and the count of
-     tensor-core instructions in K1's SASS, of bulk copies in K3's and of
-     shared-memory atomics in K2's accumulation (cuobjdump; a kernel
-     without its own fails);
+  2. build: every csrc/*.cu kernel (K1-K3, M1, E1, H1), one nvcc each,
+     started together, with the -Xptxas -v register / shared-memory / spill
+     lines, and the count of tensor-core instructions in K1's SASS, of bulk
+     copies in K3's and of shared-memory atomics in K2's accumulation
+     (cuobjdump; a kernel without its own fails); H1's global reduction
+     opcodes and local-memory instructions;
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes, with the stated tolerances; kernel, plain, library and
      bound times and the share of the bound (K1 fused_field_head, timed
@@ -23,6 +24,12 @@ Phases (one line each; any failure exits non-zero before the result lines):
   3b. gather benchmark: enerf_torch.tools.bench_gather at its defaults and
      with --rows 97824 --d 250, every variant's rows/s and GB/s (the path
      that runs K3);
+  3c. hash-grid encode: H1 (csrc/hash_encode.cu) against its plain version
+     on the published grid (16 x 2 at 2^19) at one render of
+     mocapDesk2_enerf (10,289,152 samples) and one render chunk (2,609,152):
+     the forward bit-equal, the table gradient within the atomics-order
+     bound of each row; H1.fwd, H1.bwd, the plain forward and the plain
+     VJP from saved addresses beside the roofline bound;
   4. main path: the --ff -O event trainer at full field width (16 x 2
      levels, blk4, 2^19 hash budget, hidden 64, geo 15, SH 4) on the
      synthetic event scene, its chains built on the card by E1 and held
@@ -82,7 +89,8 @@ Phases (one line each; any failure exits non-zero before the result lines):
      the published configs: hash grid 16 x 2, 2^19, unfused MLPs, 128
      fixed steps, the frame term), one epoch of 48 steps through
      train(train, val, 1) with a checkpoint and the evaluation of 2 val
-     views (the affine correction applied to the same renders), a resumed
+     views (the affine correction applied to the same renders), H1's
+     launches there (a VJP a step at least, a forward for each), a resumed
      Trainer bit-equal, and one more step split into parts; then the
      --gui viewer on that trainer (GUIRenderer.train_steps(16), 4
      progressive frames, the HTTP server on an ephemeral port: GET /frame
@@ -107,7 +115,8 @@ Phases (one line each; any failure exits non-zero before the result lines):
      as published (hash grid 16 x 2, 480 x 640, 30,096 rays x 512 steps)
      on the fixture, with one val index and two 16-step epochs, one graphed
      window each (captured in the first, the graph kept and replayed in
-     the second; one capture): steps/s of each epoch, peak memory, the
+     the second; one capture): H1's launches in the two epochs and the
+     evaluation (as in phase 9), steps/s of each epoch, peak memory, the
      checkpoint's and the evaluation's seconds (one 480 x 640 view), PSNR
      and LPIPS; finite losses and PSNR; one more graphed step split into
      its phases by the span registry's device marks; save_mesh(256, 10.0)
@@ -372,6 +381,12 @@ def sass_counts():
     k2 = count(k2_funcs, "accumulate", ("ATOMS",))
     k2_ops = sorted({ins.split()[0] for f, body in k2_funcs.items() if "accumulate" in f
                      for ins in body if ins.startswith(("ATOM", "RED"))})
+    h1_funcs = sass_functions("hash_encode")
+    h1_red = sorted({ins.split()[0] for f, body in h1_funcs.items() if "bwd" in f
+                     for ins in body if ins.startswith(("ATOMG", "RED"))})
+    h1_local = count(h1_funcs, "hash_encode", ("LDL", "STL"))
+    print(f"[build] SASS: hash_encode (H1) global reduction opcodes in the VJP {h1_red}; "
+          f"local-memory instructions per kernel {h1_local}")
     bf16 = sum(c for f, c in k1.items() if "bf16" in f)
     print(f"[build] SASS: fused_field_head tensor-core instructions (HMMA/HGMMA) per kernel "
           f"{k1}; group_gather bulk copies (UBLKCP) per kernel {k3} (design kept: TMA bulk "
@@ -805,6 +820,95 @@ def phase_gather_bench():
         raise AssertionError(f"gather benchmark incomplete: {len(results)} lines, "
                              f"K3 launches {launches}")
     return launches
+
+
+# the main path's encode shapes: one render of mocapDesk2_enerf (20,096
+# event pairs' rays x 512 samples) and one render chunk of spiral1_nerf's
+# view (5,096 rays x 512 samples)
+H1_SHAPES = (("render", 20_096), ("chunk", 5_096))
+H1_GRID = dict(num_levels=16, level_dim=2, log2_hashmap_size=19, desired_resolution=4096)
+
+
+def h1_positions(rays, steps, gen):
+    """x01 [rays * steps, 3] as the renderer lays them out: a ray's `steps`
+    samples consecutive, evenly spaced along its chord through the unit box
+    (through a random point inside, in a random direction)."""
+    import torch
+    p = torch.rand(rays, 3, device="cuda", generator=gen)
+    d = torch.nn.functional.normalize(torch.randn(rays, 3, device="cuda", generator=gen), dim=-1)
+    t0, t1 = -p / d, (1.0 - p) / d
+    near = torch.minimum(t0, t1).amax(-1, keepdim=True)
+    far = torch.maximum(t0, t1).amin(-1, keepdim=True)
+    t = near + (far - near) * (torch.arange(steps, device="cuda") + 0.5) / steps
+    return (p[:, None, :] + t[..., None] * d[:, None, :]).reshape(-1, 3).clamp(0.0, 1.0)
+
+
+def phase_hash_encode():
+    """3c. H1 (csrc/hash_encode.cu) against its plain version at the main
+    path's shapes on the published grid: the forward bit-equal, the table
+    gradient of each row within 2 k 2^-24 of the magnitude of its k
+    addends (both sides sum them by float atomics, in any order); H1.fwd,
+    H1.bwd, the plain forward (address step and blend) and the plain VJP
+    from saved addresses (index_add_ of kept rows and weights), by CUDA
+    events, beside the roofline bound (benchmark/work.py: positions,
+    output and table once; the VJP's bytes by the same rule)."""
+    import torch
+    from benchmark.work import encode_roofline_s
+    from enerf_torch.ops import hashgrid as hg
+
+    meta = hg.HashGridMeta(**H1_GRID)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    table = torch.rand(meta.total_entries, meta.level_dim, device="cuda", generator=gen) * 2 - 1
+    peak = {"hbm_bytes_per_s": HBM_BYTES_PER_S, "fp32_flops": PEAK_FLOPS["float32"]}
+    launches = hg.hash_encode_kernel.launches, hg.hash_table_grad_kernel.launches
+    res = {}
+    for tag, rays in H1_SHAPES:
+        x = h1_positions(rays, 512, gen)
+        n = x.shape[0]
+        g = torch.randn(n, meta.output_dim, device="cuda", generator=gen)
+        idx, w, oob = hg.hash_address(x, meta)
+        equal = torch.equal(hg.hash_encode_kernel(x, table, meta),
+                            hg.encode_from_address(idx, w, oob, table))
+        # both sides sum the same float32 addends by atomics, in any order:
+        # each within (k - 1) 2^-24 of the addends' magnitude from the exact
+        # sum of a row's k addends
+        plain_grad = hg.table_grad_from_address(idx, w, oob, g, table.shape)
+        diff = (hg.hash_table_grad_kernel(x, g, meta) - plain_grad).abs()
+        grad_err = float(diff.max() / plain_grad.abs().max())
+        mag = hg.table_grad_from_address(idx, w, oob, g.abs(), table.shape)
+        count = hg.table_grad_from_address(idx, torch.ones_like(w), oob, torch.ones_like(g),
+                                           table.shape)
+        within = bool((diff <= 2.0 * 2.0 ** -24 * count * mag * 1.01).all())
+        del plain_grad, diff, mag, count
+        ms = dict(fwd=time_ms(lambda: hg.hash_encode_kernel(x, table, meta), iters=20),
+                  bwd=time_ms(lambda: hg.hash_table_grad_kernel(x, g, meta), iters=20),
+                  plain_fwd=time_ms(lambda: hg.encode_from_address(*hg.hash_address(x, meta),
+                                                                   table), iters=3, warmup=1),
+                  plain_bwd=time_ms(lambda: hg.table_grad_from_address(idx, w, oob, g,
+                                                                       table.shape),
+                                    iters=3, warmup=1))
+        bound = 1e3 * encode_roofline_s(n, meta.total_entries, meta.num_levels, meta.level_dim,
+                                        peak)
+        ok = equal and within
+        print(f"[h1] {tag}: {n} samples ({rays} rays x 512), 16 x 2 at 2^19 "
+              f"({meta.total_entries} rows): forward {'bit-equal' if equal else 'DIFFERS'}, "
+              f"table gradient {'within' if within else 'NOT within'} the atomics-order bound "
+              f"of every row (max |diff| / max |grad| {grad_err:.2e}); H1.fwd "
+              f"{ms['fwd']:.4f} ms ({100 * bound / ms['fwd']:.2f}% of the bound {bound:.4f} ms), "
+              f"H1.bwd {ms['bwd']:.4f} ms ({100 * bound / ms['bwd']:.2f}%); plain forward "
+              f"{ms['plain_fwd']:.2f} ms, plain VJP from saved addresses {ms['plain_bwd']:.2f} ms "
+              f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"H1 disagrees with its plain version at the {tag} shape")
+        res[tag] = dict(samples=n, ms=ms["fwd"], bwd_ms=ms["bwd"], plain_ms=ms["plain_fwd"],
+                        plain_bwd_ms=ms["plain_bwd"], bound_ms=bound,
+                        share_of_bound=bound / ms["fwd"], bwd_share_of_bound=bound / ms["bwd"],
+                        grad_rel_err=grad_err)
+        del x, g, idx, w, oob
+    print(f"[h1] launches in the phase: H1.fwd "
+          f"{hg.hash_encode_kernel.launches - launches[0]}, H1.bwd "
+          f"{hg.hash_table_grad_kernel.launches - launches[1]}")
+    return res
 
 
 def smoke_config(workspace, *extra):
@@ -1424,6 +1528,8 @@ KERNEL_NAMES = {"fused_field_head": ("head_bf16_kernel", "head_f32_kernel"),
                 "block_table_grad": ("accumulate_kernel",),
                 "group_gather": ("group_gather_kernel",),
                 "march_rays": ("march_rays_kernel",),
+                "hash_encode_kernel": ("hash_encode_fwd_kernel",),
+                "hash_table_grad_kernel": ("hash_encode_bwd_kernel",),
                 "span_mark": ("span_mark_kernel",)}
 
 
@@ -1622,7 +1728,7 @@ def phase_default_path(workspace):
     import numpy as np
     import torch
     from enerf_torch.data.provider import make_providers
-    from enerf_torch.ops import fused_mlp, group_gather, scatter_accum
+    from enerf_torch.ops import fused_mlp, group_gather, hashgrid, scatter_accum
     from enerf_torch.train.trainer import Trainer
 
     cfg = default_config(workspace)
@@ -1643,7 +1749,8 @@ def phase_default_path(workspace):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counts = (fused_mlp.fused_field_head, scatter_accum.block_table_grad,
-              group_gather.group_gather)
+              group_gather.group_gather, hashgrid.hash_encode_kernel,
+              hashgrid.hash_table_grad_kernel)
     for c in counts:
         c.launches = 0
     t0 = time.time()
@@ -1663,8 +1770,10 @@ def phase_default_path(workspace):
           f"{steps / secs['steps']:.3f} steps/s; tail "
           + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items() if k != "steps")
           + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel "
-          f"launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]} (none on this path: "
-          "the JAX package runs it without Pallas)")
+          f"launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}, H1.fwd {launches[3]}, "
+          f"H1.bwd {launches[4]} (the steps, a replay's counted from the capture, and the "
+          f"evaluation)")
+    h1_launches("default", launches[3:], steps)
     res = trainer.last_eval
     # with the frame term JAX's evaluation applies no affine correction
     # (trainer.py:687); the smoke applies the event-only correction to the
@@ -1684,7 +1793,15 @@ def phase_default_path(workspace):
     if not all(np.isfinite(x) for x in (res.get("psnr", np.nan), res.get("ssim", np.nan),
                                         corr["psnr_corrected"], corr["ssim_corrected"])):
         raise AssertionError(f"evaluation gave no finite metrics: {res}, {corr}")
-    return trainer, train
+    return trainer, train, launches[3:]
+
+
+def h1_launches(tag, launches, steps):
+    """Raise unless H1 ran on a training path: a VJP a step at least and a
+    forward for each VJP (the evaluation's forwards have none)."""
+    fwd, bwd = launches
+    if bwd < steps or fwd < bwd:
+        raise AssertionError(f"{tag}: H1.fwd {fwd}, H1.bwd {bwd} launches in {steps} steps")
 
 
 def lpips_text(trainer):
@@ -2188,9 +2305,10 @@ def phase_esim_frames(datadir, workspace):
     grid, 480 x 640, 30,096 rays x 512 steps) on the fixture: two 16-step
     epochs, one graphed window each (fuse_steps 16, the default; captured
     in the first, replayed in the second), a checkpoint each and the
-    evaluation of one view after the second."""
+    evaluation of one view after the second; H1's launches counted."""
     import numpy as np
     import torch
+    from enerf_torch.ops import hashgrid as hg
 
     steps = 16
     print(f"[esim-frames] held before the phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
@@ -2201,12 +2319,17 @@ def phase_esim_frames(datadir, workspace):
                            "--eval_interval", "2", *extra)
 
     cfg = make_cfg(workspace)
+    hg.hash_encode_kernel.launches = hg.hash_table_grad_kernel.launches = 0
     trainer, (train, _), load, peak = esim_run(cfg, workspace, steps, evaluate=True,
                                                  epochs=2)
+    h1 = [hg.hash_encode_kernel.launches, hg.hash_table_grad_kernel.launches]
     secs, res = trainer.epoch_seconds, trainer.last_eval
     losses = [aux["loss"] for _, aux in trainer.history]
     print(f"[esim-frames] spiral1_nerf: {esim_shape_line(trainer, train, cfg)}; "
-          f"{train.images.shape[0]} train frames, data loaded in {load:.2f} s")
+          f"{train.images.shape[0]} train frames, data loaded in {load:.2f} s; H1.fwd {h1[0]}, "
+          f"H1.bwd {h1[1]} launches in the {2 * steps} steps (a replay's counted from the "
+          f"capture) and the evaluation of one view")
+    h1_launches("spiral1_nerf", h1, 2 * steps)
     first, replay = window_epochs("esim-frames", trainer, steps)
     print(f"[esim-frames] peak memory {peak:.2f} GiB allocated, {trainer.peak_reserved_gib:.2f} "
           f"GiB reserved (the graph's pool); checkpoint {secs.get('checkpoint', float('nan')):.3f} "
@@ -2220,7 +2343,7 @@ def phase_esim_frames(datadir, workspace):
     phase_frames_breakdown(trainer, train)
     phase_mesh("esim-frames", trainer)
     return dict(steps_s=first, replay_steps_s=replay, peak_gib=peak,
-                peak_reserved_gib=trainer.peak_reserved_gib)
+                peak_reserved_gib=trainer.peak_reserved_gib, h1_launches=h1)
 
 
 def phase_frames_breakdown(trainer, train):
@@ -3795,6 +3918,7 @@ def main():
         k2 = phase_k2_kernel()
         k3 = phase_k3_kernel()
         k3_launches = phase_gather_bench()
+        h1 = phase_hash_encode()
         workspace = os.path.join(REPO, "build", "chip_smoke")
         trainer, train, val, launches, m1_launches = phase_main_path(workspace)
         phase_resume(trainer, workspace)
@@ -3811,7 +3935,7 @@ def main():
         k2_launches, k2_on_path = phase_k2_path()
         phase_no_event(os.path.join(REPO, "build", "chip_smoke_noev"))
         workspace = os.path.join(REPO, "build", "chip_smoke_default")
-        trainer, train = phase_default_path(workspace)
+        trainer, train, h1_default = phase_default_path(workspace)
         phase_resume(trainer, workspace)
         phase_default_breakdown(trainer, train)
         k1_viewer = phase_viewer(trainer, train, workspace)
@@ -3916,6 +4040,15 @@ def main():
             "max_abs_err_main_path": MAIN_E1["max_abs_err"]},
             **dict(e1, max_abs_err=max(e1["max_abs_err"], MAIN_E1["max_abs_err"])),
             load_splits=LOAD_SPLITS),
+        dict({
+            "name": "hash_encode", "route": "cuda",
+            "source": "enerf_torch/csrc/hash_encode.cu",
+            # plain jnp in the JAX package (no pallas_call): the port's
+            # first hand-written encode
+            "replaces": "enerf_tpu/ops/hashgrid.py:hash_encode",
+            "launches": sum(h1_default), "launches_fwd_bwd_default": h1_default,
+            "launches_fwd_bwd_spiral1": spiral1["h1_launches"]},
+            **h1["render"], chunk=h1["chunk"]),
     ]}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

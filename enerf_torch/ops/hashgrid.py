@@ -9,20 +9,31 @@ embeddings are blended (bi/tri)linearly.  Samples outside [0, 1]^D encode
 to 0.  D = 3 for the field, D = 2 for the background net's sphere
 coordinates.
 
-The uint32 arithmetic of the CUDA and XLA versions (the dense index and the
-hash wrap at 2^32) is done in int64, masked with 0xFFFFFFFF after each
-product and each sum, which gives the same indices; torch's uint32 dtype
-has only partial operator support.
+`hash_encode` runs kernel pair H1 (csrc/hash_encode.cu) on CUDA tensors:
+H1.fwd computes the addresses in registers and writes only the encoding,
+H1.bwd recomputes them from the positions and scatter-adds the table
+gradient with atomics.  Its autograd node keeps the positions x01 (and the
+table only when x01 needs a gradient), never the addresses.  On CPU tensors
+it runs the plain functions below, the backward recomputing the addresses
+the same way; they are also what the card tests hold H1 to.
+
+The plain version's uint32 arithmetic (the dense index and the hash wrap at
+2^32, as in the CUDA and XLA versions) is done in int64, masked with
+0xFFFFFFFF after each product and each sum, which gives the same indices;
+torch's uint32 dtype has only partial operator support.
 
 `hash_address` is the address step alone (flat table indices and weights
 per sample, level and corner), so tests can hand the same addresses to
 both packages.  The table gradient is the gather's VJP, an `index_add_` of
-w * g per corner into the table; `hash_encode`'s autograd node keeps the
-[N, L, 2^D] indices (int32) and weights, not the gathered values.  When the
+w * g per corner into the table (`table_grad_from_address`).  When the
 positions need a gradient it is the one JAX's autodiff gives (reference
 dy_dx, gridencoder.cu:176-221): dx_d = sum over levels of scale_l times
-sum over corners of dw/dfrac_d * <g, table row>, zero outside the box.
+sum over corners of dw/dfrac_d * <g, table row>, zero outside the box
+(`position_grad_from_address`, over recomputed addresses, on either
+device).
 """
+
+import ctypes
 
 import numpy as np
 import torch
@@ -102,6 +113,12 @@ class HashGridMeta:
         self.dense_strides = strides
         self.use_dim = use_dim
         self._dev = {}
+        # H1's per-level constants as its C interface takes them: scales,
+        # uint32 strides [L, D], sizes, offsets, the hashed levels' bit mask
+        self.kernel_constants = (
+            self.scales, ((strides % 2 ** 32) * use_dim).astype(np.uint32),
+            self.sizes.astype(np.uint32), self.offsets[:-1].astype(np.uint32),
+            sum(1 << lvl for lvl in range(L) if self.is_hashed[lvl]))
 
     def tensors(self, device):
         """Per-level constants as tensors on `device` (cached per device):
@@ -222,35 +239,124 @@ def position_grad_from_address(x01, idx, oob, table, g, meta):
     return torch.stack(dx, -1).to(x01.dtype)
 
 
+def _lib():
+    from enerf_torch.ops.cuda_build import load_library
+    lib = load_library("hash_encode")
+    for fn in (lib.hash_encode_forward_launch, lib.hash_encode_backward_launch):
+        if fn.argtypes is None:
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p] * 4 + [ctypes.c_uint, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_kernel(x01, rows, meta, g=None):
+    """Raise on what H1 does not take: float32 contiguous CUDA tensors on one
+    device, x01 [N, D], the table or gradient [total_entries, C] 16-byte
+    aligned, g [N, L * C]; C in 1, 2, 4, 8 and at most 32 levels."""
+    D, C, L = meta.input_dim, meta.level_dim, meta.num_levels
+    if C not in (1, 2, 4, 8) or L > 32:
+        raise ValueError(f"the hash-grid kernel takes 1, 2, 4 or 8 channels and at most 32 "
+                         f"levels, got {C} and {L}")
+    ops = [x01, rows] + ([] if g is None else [g])
+    if not all(t.is_cuda and t.device == x01.device for t in ops):
+        raise ValueError("the hash-grid kernel takes CUDA tensors on one device")
+    if not all(t.dtype == torch.float32 for t in ops):
+        raise TypeError(f"the hash-grid kernel takes float32 tensors, got "
+                        f"{[t.dtype for t in ops]}")
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("the hash-grid kernel takes contiguous tensors")
+    N = x01.shape[0]
+    if x01.shape != (N, D) or rows.shape != (meta.total_entries, C) or (
+            g is not None and g.shape != (N, L * C)):
+        raise ValueError(f"the hash-grid kernel takes x01 [N, {D}], a table [{meta.total_entries}, "
+                         f"{C}] and g [N, {L * C}], got {[tuple(t.shape) for t in ops]}")
+    if rows.data_ptr() % 16:
+        raise ValueError("the hash-grid kernel takes a 16-byte aligned table")
+
+
+def _launch(fn, x01, src, dst, meta):
+    with torch.cuda.device(x01.device):
+        err = fn(x01.data_ptr(), src.data_ptr(), dst.data_ptr(), x01.shape[0], meta.input_dim,
+                 meta.level_dim, meta.num_levels,
+                 *(c.ctypes.data for c in meta.kernel_constants[:4]), meta.kernel_constants[4],
+                 torch.cuda.current_stream(x01.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hash-grid kernel launch failed: cudaError {err}")
+
+
+def hash_encode_kernel(x01, table, meta):
+    """H1.fwd on CUDA tensors: the encoding [N, L * C] f32 of positions
+    x01 [N, D], bit-equal to encode_from_address(*hash_address(x01, meta),
+    table)."""
+    _check_kernel(x01, table, meta)
+    out = torch.empty(x01.shape[0], meta.output_dim, device=x01.device)
+    if x01.shape[0]:
+        _launch(_lib().hash_encode_forward_launch, x01, table, out, meta)
+        hash_encode_kernel.launches += 1
+    return out
+
+
+def hash_table_grad_kernel(x01, g, meta):
+    """H1.bwd on CUDA tensors: the f32 table gradient of hash_encode for the
+    output gradient g [N, L * C], the addresses recomputed from x01; the
+    addends of table_grad_from_address, summed by atomics in another
+    order."""
+    grad = torch.zeros(meta.total_entries, meta.level_dim, device=x01.device)
+    _check_kernel(x01, grad, meta, g)
+    if x01.shape[0]:
+        _launch(_lib().hash_encode_backward_launch, x01, g, grad, meta)
+        hash_table_grad_kernel.launches += 1
+    return grad
+
+
+hash_encode_kernel.launches = 0      # H1.fwd launches
+hash_table_grad_kernel.launches = 0  # H1.bwd launches
+
+
 class _HashEncode(torch.autograd.Function):
     """The encode and its VJP, as the spans `encode.fwd` and `encode.bwd`
-    (utils/profiling.py)."""
+    (utils/profiling.py).  The node saves the positions x01, and the table
+    only when x01 needs a gradient; the backward recomputes the addresses
+    from x01.  CUDA tensors go to H1 (a shape, type or layout H1 does not
+    take raises), CPU tensors to the plain functions.  The position
+    gradient is position_grad_from_address over recomputed addresses on
+    either device: no training path asks for it (the sample positions
+    derive from rays, not from parameters; `position_grads` is a TPU
+    variant, config.py TPU_ONLY)."""
 
     @staticmethod
     def forward(ctx, x01, table, meta, out):
         with profiling.span("encode.fwd", x01.device):
-            idx, w, oob = hash_address(x01, meta)
             dx = ctx.needs_input_grad[0]
-            ctx.save_for_backward(idx, w, oob, x01 if dx else None, table if dx else None)
+            ctx.save_for_backward(x01, table if dx else None)
             ctx.meta, ctx.table_shape, ctx.table_dtype = meta, table.shape, table.dtype
             if out is not None:  # replay of a kept encoding (remat_fixed=2)
                 return out.clone()
-            return encode_from_address(idx, w, oob, table)
+            if x01.is_cuda or table.is_cuda:
+                return hash_encode_kernel(x01, table, meta)
+            return encode_from_address(*hash_address(x01, meta), table)
 
     @staticmethod
     def backward(ctx, g):
         with profiling.span("encode.bwd", g.device):
-            idx, w, oob, x01, table = ctx.saved_tensors
-            grad = table_grad_from_address(idx, w, oob, g, ctx.table_shape)
+            x01, table = ctx.saved_tensors
+            meta = ctx.meta
+            if x01.is_cuda:
+                grad = hash_table_grad_kernel(x01, g.contiguous(), meta)
+            else:
+                grad = table_grad_from_address(*hash_address(x01, meta), g, ctx.table_shape)
             dx = None
             if ctx.needs_input_grad[0]:
-                dx = position_grad_from_address(x01, idx, oob, table, g, ctx.meta)
+                idx, _, oob = hash_address(x01, meta)
+                dx = position_grad_from_address(x01, idx, oob, table, g, meta)
             return dx, grad.to(ctx.table_dtype), None, None
 
 
 def hash_encode(x01, table, meta, out=None):
     """Encode [N, D] positions in [0, 1] -> [N, L * C] (level-major, then
     channel); samples outside the unit box encode to 0.  Differentiable in
-    `table` and in `x01`.  `out`: a previously computed encoding of the same positions,
+    `table` and in `x01`.  H1 on CUDA tensors, the plain functions on CPU
+    tensors.  `out`: a previously computed encoding of the same positions,
     returned (copied) without the gather, with the same table backward."""
     return _HashEncode.apply(x01, table, meta, out)

@@ -88,10 +88,11 @@ def _expandable_segments():
 
 def kernel_counters():
     """The wrapper functions whose `launches` count the port's kernels."""
-    from enerf_torch.ops import fused_mlp, group_gather, scatter_accum
+    from enerf_torch.ops import fused_mlp, group_gather, hashgrid, scatter_accum
     from enerf_torch.render import march
     return (fused_mlp.fused_field_head, scatter_accum.block_table_grad,
-            group_gather.group_gather, march.march_rays)
+            group_gather.group_gather, march.march_rays, hashgrid.hash_encode_kernel,
+            hashgrid.hash_table_grad_kernel)
 
 
 class TrainChunk:

@@ -299,3 +299,50 @@ def test_field_matches_jax(bf16):
         gj = np.asarray(g_j[k])
         np.testing.assert_allclose(n(pt[k].grad), gj, rtol=0, atol=2e-3 * np.abs(gj).max(),
                                    err_msg=k)
+
+
+# dense levels 0-1, hashed above (D = 3: 125 and 729 rows fit 2^10, 17^3 does
+# not; D = 2: 25, 81, 289 fit, 33^2 does not)
+SAVED_META = dict(num_levels=4, level_dim=2, base_resolution=4, per_level_scale=2.0,
+                  log2_hashmap_size=10)
+
+
+def _saved_case(dims, x_grad, seed):
+    meta = th.HashGridMeta(input_dim=dims, **SAVED_META)
+    assert meta.is_hashed.any() and not meta.is_hashed.all()
+    rng = np.random.default_rng(seed)
+    x = t(rng.uniform(-0.05, 1.05, (400, dims)).astype(np.float32)).requires_grad_(x_grad)
+    table = t(rng.uniform(-1, 1, (meta.total_entries, 2)).astype(np.float32)).requires_grad_()
+    g = t(rng.normal(size=(400, meta.output_dim)).astype(np.float32))
+    return meta, x, table, g
+
+
+@pytest.mark.parametrize("x_grad", [False, True])
+def test_hash_encode_node_saves_the_positions_not_the_addresses(x_grad):
+    """The VJP recomputes the addresses: the node keeps x01 alone, and the
+    table only where x01 needs a gradient."""
+    meta, x, table, _ = _saved_case(3, x_grad, 6)
+    saved = th.hash_encode(x, table, meta).grad_fn.saved_tensors
+    assert len(saved) == 2 and saved[0] is x
+    assert (saved[1] is table) if x_grad else saved[1] is None
+    assert not any(s is not None and s.dim() == 3 for s in saved)  # no [N, L, 2^D]
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("replay", [False, True])
+def test_hash_encode_grads_equal_the_address_saving_path(dims, replay):
+    """Table and position gradients through the recomputing node equal the
+    plain functions on the forward's addresses, bit for bit on the CPU, with
+    dense and hashed levels and samples outside the box, also through the
+    `out` replay (remat_fixed=2)."""
+    meta, x, table, g = _saved_case(dims, True, 7 + dims)
+    idx, w, oob = th.hash_address(x.detach(), meta)
+    assert oob.any() and not oob.all()
+    plain = th.encode_from_address(idx, w, oob, table.detach())
+    out = th.hash_encode(x, table, meta, out=plain if replay else None)
+    assert torch.equal(out, plain)
+    dx, dtable = torch.autograd.grad(out, (x, table), g)
+    assert torch.equal(dtable, th.table_grad_from_address(idx, w, oob, g, table.shape))
+    assert torch.equal(dx, th.position_grad_from_address(x.detach(), idx, oob, table.detach(), g,
+                                                         meta))
+    assert (dx[oob] == 0).all() and dx.abs().max() > 0

@@ -12,8 +12,9 @@ import torch
 
 import torch_parity  # noqa: F401  (one intra-op thread per xdist worker)
 
-from enerf_torch.ops import fused_mlp, group_gather, scatter_accum
+from enerf_torch.ops import fused_mlp, group_gather, hashgrid, scatter_accum
 from enerf_torch.ops.blockgrid import BlockGridMeta
+from enerf_torch.utils import profiling
 
 
 @pytest.mark.gpu
@@ -307,3 +308,225 @@ def test_march_bit_arithmetic_exhaustive_on_card():
         pytest.skip("needs a CUDA device")
     from enerf_torch.render import march as M
     assert M.mip_check() == {"level": 0, "division": 0, "exp2": 0}
+
+
+# H1's grids: the published field grid (16 x 2 at 2^19, desired_resolution
+# 4096 at bound 2), the background net's 2-D grid, a tiled grid (every
+# level dense and wrapped) and the other channel counts, one with more
+# levels than a block has warps
+H1_GRIDS = {
+    "published": dict(num_levels=16, level_dim=2, log2_hashmap_size=19, desired_resolution=4096),
+    "background": dict(input_dim=2, num_levels=4, level_dim=2, log2_hashmap_size=19,
+                       desired_resolution=2048),
+    "tiled": dict(num_levels=8, level_dim=2, log2_hashmap_size=14, desired_resolution=512,
+                  gridtype="tiled"),
+    "c1": dict(num_levels=6, level_dim=1, log2_hashmap_size=12, desired_resolution=256),
+    "c4_20_levels": dict(num_levels=20, level_dim=4, log2_hashmap_size=12,
+                         desired_resolution=1024),
+    "c8_2d": dict(input_dim=2, num_levels=3, level_dim=8, base_resolution=4,
+                  log2_hashmap_size=10),
+}
+
+
+def _h1_case(meta, rays, steps, seed):
+    """Positions as the renderer lays them out (the `steps` samples of a ray
+    consecutive, on a segment through the unit box), 3% of them moved to
+    [-0.1, 1.1]^D, some on the box's faces, 17 more at random (N not a
+    multiple of a block's 32); a table U(-1, 1); an output gradient N(0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    D = meta.input_dim
+    a, b = (torch.rand(rays, 1, D, device="cuda", generator=g) for _ in range(2))
+    t = (torch.arange(steps, device="cuda") + 0.5) / steps
+    x = torch.cat([(a + (b - a) * t[None, :, None]).reshape(-1, D),
+                   torch.rand(17, D, device="cuda", generator=g)])
+    moved = torch.rand(x.shape[0], device="cuda", generator=g) < 0.03
+    x[moved] = x[moved] * 1.2 - 0.1
+    x[:5, 0], x[5:10, D - 1] = 0.0, 1.0
+    table = torch.rand(meta.total_entries, meta.level_dim, device="cuda", generator=g) * 2 - 1
+    gout = torch.randn(x.shape[0], meta.output_dim, device="cuda", generator=g)
+    return x.contiguous(), table, gout
+
+
+def _h1_grad_bound(x, gout, meta):
+    """The exact table gradient (float64 sums of the float32 addends w * g)
+    and its bound.  H1.bwd adds the same float32 addends as the plain
+    version, in an order its atomics and its merge of equal rows set; any
+    order of k float32 sums lies within (k - 1) 2^-24 of the sum of the
+    addends' magnitudes from the exact sum, so a row of k addends is held to
+    k 2^-24 of that magnitude, and a row that no sample touches to 0."""
+    idx, w, oob = hashgrid.hash_address(x, meta)
+    C = meta.level_dim
+    add = (w[..., None] * gout.reshape(x.shape[0], meta.num_levels, 1, C))  # float32 addends
+    add = add.masked_fill(oob[:, None, None, None], 0.0).reshape(-1, C).double()
+    rows = idx.reshape(-1).long()
+    exact = torch.zeros(meta.total_entries, C, dtype=torch.float64, device=x.device)
+    mag, count = torch.zeros_like(exact), torch.zeros_like(exact)
+    exact.index_add_(0, rows, add)
+    mag.index_add_(0, rows, add.abs())
+    count.index_add_(0, rows, torch.ones_like(add))
+    return exact, count * 2.0 ** -24 * mag
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", list(H1_GRIDS))
+def test_hash_encode_kernel_matches_twin_on_card(grid):
+    """H1.fwd is bit-equal to encode_from_address(*hash_address(...)) (the
+    same float32 operations in the same order; zeros outside the box);
+    H1.bwd's table gradient is within the atomics-order bound of the exact
+    sum (_h1_grad_bound), as is the plain version's index_add_."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (H1 has no CPU mode)")
+    meta = hashgrid.HashGridMeta(**H1_GRIDS[grid])
+    x, table, gout = _h1_case(meta, 2048, 128, seed=len(grid))
+    f0, b0 = hashgrid.hash_encode_kernel.launches, hashgrid.hash_table_grad_kernel.launches
+    got = hashgrid.hash_encode_kernel(x, table, meta)
+    torch.cuda.synchronize()
+    plain = hashgrid.encode_from_address(*hashgrid.hash_address(x, meta), table)
+    oob = ((x < 0) | (x > 1)).any(-1)
+    assert oob.any() and (got[oob] == 0).all() and got.abs().max() > 0.1
+    assert torch.equal(got, plain)
+    grad = hashgrid.hash_table_grad_kernel(x, gout, meta)
+    torch.cuda.synchronize()
+    assert hashgrid.hash_encode_kernel.launches == f0 + 1
+    assert hashgrid.hash_table_grad_kernel.launches == b0 + 1
+    exact, bound = _h1_grad_bound(x, gout, meta)
+    assert ((grad.double() - exact).abs() <= bound).all()
+    assert (grad[bound == 0] == 0).all() and (bound > 0).sum() > 1000
+    plain_grad = hashgrid.table_grad_from_address(*hashgrid.hash_address(x, meta), gout,
+                                                  table.shape)
+    assert ((plain_grad.double() - exact).abs() <= bound).all()
+
+
+@pytest.mark.gpu
+def test_hash_encode_on_card_raises_on_what_h1_does_not_take():
+    """A CUDA tensor goes to H1 or raises: never to the plain path (the
+    launch counts move only for what H1 runs, forward and VJP)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (H1 has no CPU mode)")
+    meta = hashgrid.HashGridMeta(num_levels=4, level_dim=2, log2_hashmap_size=10)
+    x, table, _ = _h1_case(meta, 8, 16, seed=3)
+    wide = torch.zeros(meta.total_entries + 1, 2, device="cuda")
+    counts = lambda: (hashgrid.hash_encode_kernel.launches,  # noqa: E731
+                      hashgrid.hash_table_grad_kernel.launches)
+    before = counts()
+    bad = [(x.double(), table, TypeError), (x, table.half(), TypeError),
+           (x.t().contiguous().t(), table, ValueError), (x[:, :2], table, ValueError),
+           (x, table[:-8], ValueError), (x, wide[1:], ValueError),  # 8 bytes off: misaligned
+           (x.cpu(), table, ValueError)]
+    for xi, ti, err in bad:
+        with pytest.raises(err):
+            hashgrid.hash_encode(xi, ti, meta)
+    with pytest.raises(ValueError):
+        hashgrid.hash_encode(x, torch.zeros(meta.total_entries, 3, device="cuda"),
+                             hashgrid.HashGridMeta(num_levels=4, level_dim=3,
+                                                   log2_hashmap_size=10))
+    assert counts() == before
+    with pytest.raises(ValueError):
+        hashgrid.hash_table_grad_kernel(x, torch.zeros(x.shape[0], 7, device="cuda"), meta)
+    # the forward, then the VJP of a gradient autograd hands in expanded
+    tp = table.clone().requires_grad_()
+    hashgrid.hash_encode(x, tp, meta).sum().backward()
+    assert counts() == (before[0] + 1, before[1] + 1)
+    assert tp.grad.abs().sum() > 0
+
+
+@pytest.mark.gpu
+def test_hash_encode_in_a_captured_graph_replays_its_eager_step():
+    """The encode and its VJP captured in a CUDA graph (as the training
+    window captures them) launch H1 once each a replay; a replay's encoding
+    is bit-equal to the eager one, its table gradient within the
+    atomics-order bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (H1 has no CPU mode)")
+    meta = hashgrid.HashGridMeta(**H1_GRIDS["published"])
+    x, table, gout = _h1_case(meta, 512, 128, seed=11)
+    table.requires_grad_()
+
+    def step():
+        out = hashgrid.hash_encode(x, table, meta)
+        return out, torch.autograd.grad(out, table, gout)[0]
+
+    eager_out, eager_grad = (v.detach().clone() for v in step())  # no graph kept
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    owners = (hashgrid.hash_encode_kernel, hashgrid.hash_table_grad_kernel)
+    with profiling.recording(owners) as replay, torch.cuda.graph(graph):
+        out, grad = step()
+    assert replay.launches[owners[0]] == 1 and replay.launches[owners[1]] == 1
+    for _ in range(2):
+        profiling.replayed(replay)
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager_out)
+    exact, bound = _h1_grad_bound(x, gout, meta)
+    for got in (grad, eager_grad):
+        assert ((got.double() - exact).abs() <= bound).all()
+
+
+def _state_copy(tr):
+    st = tr.state
+    return ({name: {k: v.detach().clone() for k, v in getattr(st, name).items()}
+             for name in ("params", "ema_params", "exp_avg", "exp_avg_sq")},
+            st.count.clone(), st.step, [g.get_state() for g in (tr.generator, tr.rank_generator)])
+
+
+def _state_put(tr, copy):
+    """Put a _state_copy back into the same tensors (a captured graph reads them)."""
+    tensors, count, step, gens = copy
+    st = tr.state
+    with torch.no_grad():
+        for name, d in tensors.items():
+            for k, v in d.items():
+                getattr(st, name)[k].copy_(v)
+        st.count.copy_(count)
+    st.step = step
+    for g, s in zip((tr.generator, tr.rank_generator), gens):
+        g.set_state(s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,renders", [("events", 2), ("frames", 1)])
+def test_a_captured_window_through_h1_matches_its_eager_window(tmp_path, mode, renders):
+    """A training window on the hash grid (the published configs' renderer)
+    captured and replayed against the same window run eagerly from the same
+    state and draws: H1's forward and VJP launch once a render in the
+    captured step; the window's loss within 1e-4 and each leaf within 2e-2
+    of its update by norm (H1.bwd's atomics make two runs differ at the
+    rounding level after the first step, and Adam steps small gradients
+    either way)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (H1 has no CPU mode)")
+    from enerf_torch.config import build_config
+    from enerf_torch.data import provider as tprov
+    from enerf_torch.train.trainer import Trainer
+
+    extra = () if mode == "events" else ("--events", "0", "--event_only", "0",
+                                         "--num_rays", "64")
+    cfg = build_config([
+        "--mode", "synthetic", "--H", "24", "--W", "24", "--syn_frames", "8",
+        "--events", "1", "--event_only", "1", "--out_dim_color", "1", "--C_thres", "0.2",
+        "--bound", "1", "--num_levels", "4", "--num_steps", "16", "--batch_size_evs", "64",
+        "--outdir", str(tmp_path), *extra])
+    tr = Trainer(cfg, device="cuda", workspace=str(tmp_path / "ws"))
+    train, _ = tprov.make_providers(cfg, device="cuda")
+    chunk = tr._chunk(train, 3, tr.state.step)
+    start = _state_copy(tr)
+    runs = {}
+    for graphed in (False, True):
+        _state_put(tr, start)
+        run = chunk if graphed else chunk.eager
+        tr.occupancy, aux = run(tr.state, tr.occupancy, train, tr.generator, tr.rank_generator)
+        torch.cuda.synchronize()
+        runs[graphed] = float(aux["loss"]), {k: v.detach().clone()
+                                            for k, v in tr.state.params.items()}
+    assert chunk.per_replay.launches[hashgrid.hash_encode_kernel] == renders
+    assert chunk.per_replay.launches[hashgrid.hash_table_grad_kernel] == renders
+    (loss_e, p_e), (loss_g, p_g) = runs[False], runs[True]
+    assert abs(loss_g - loss_e) <= 1e-4 * abs(loss_e)
+    for k, pe in p_e.items():
+        update = torch.linalg.vector_norm(pe - start[0]["params"][k])
+        assert torch.linalg.vector_norm(p_g[k] - pe) <= 2e-2 * update, k

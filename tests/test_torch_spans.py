@@ -24,6 +24,7 @@ import torch_parity  # noqa: F401  (one intra-op thread per xdist worker)
 from enerf_torch.config import build_config
 from enerf_torch.data import provider as tprov
 from enerf_torch.data import synthetic
+from enerf_torch.ops import hashgrid
 from enerf_torch.train.trainer import Trainer
 from enerf_torch.utils import profiling
 
@@ -250,6 +251,9 @@ def test_a_captured_step_records_its_spans_once_a_replay_without_a_sync(tmp_path
     tr.occupancy, _ = chunk(tr.state, tr.occupancy, *args, steps=1)  # warm-up + capture
     assert chunk.graph is not None
     assert chunk.per_replay.launches[profiling.span_mark] == 2 * 9  # 9 spans in the step
+    # H1's forward and VJP once a render of the event pair
+    assert chunk.per_replay.launches[hashgrid.hash_encode_kernel] == 2
+    assert chunk.per_replay.launches[hashgrid.hash_table_grad_kernel] == 2
     assert chunk.per_replay.counters == {}
     profiling.reset()
     syncs = []
